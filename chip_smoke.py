@@ -5,22 +5,37 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--managed-ms 16384] [--seed 0]
 
-Phases, each fatal on failure (exit code 1):
+Phases, one after another, each fatal on failure (exit code 1), each
+freeing its device memory before the next:
 
-1. build   -- compile ``csrc/swap_kernels.cu`` with nvcc for sm_90a and
-              print the card's name and power limit;
-2. kernels -- hold each of the four swap kernels against its plain
-              PyTorch version on the card (exact equality) at the
-              main-path shapes and at ragged shapes, and time kernel,
-              plain version and library call;
-3. main    -- Taiji's swap data path at the paper's deployment size
-              (2 MiB MS, 4 KiB MP, ``--managed-ms`` managed MSs of guest
-              frames in HBM, +50% elastic): fill past physical memory,
-              reclaim, passive faults, active swap-in, hv_sched
-              background reclaim under guest traffic, then every live MS
-              checked byte for byte;
-4. corrupt -- a flipped extent tag must raise CorruptionError from the
-              device-side check.
+1. build        -- compile every ``csrc/*.cu`` source with nvcc for
+                   sm_90a (one nvcc each, in parallel) and print the
+                   card's name and power limit;
+2. kernels      -- hold each of the four swap kernels against its plain
+                   PyTorch version on the card (exact equality) at the
+                   main-path shapes and at ragged shapes, and paged decode
+                   attention within its tolerances at the serve path's
+                   shape and the f32/f16 sweep; time kernel, plain version
+                   and library call;
+3. main         -- Taiji's swap data path at the paper's deployment size
+                   (2 MiB MS, 4 KiB MP, ``--managed-ms`` managed MSs of
+                   guest frames in HBM, +50% elastic): fill past physical
+                   memory, reclaim, passive faults, active swap-in,
+                   hv_sched background reclaim under guest traffic, then
+                   every live MS checked byte for byte;
+4. corrupt      -- a flipped extent tag must raise CorruptionError from
+                   the device-side check;
+5. serve        -- qwen3-4b at full width (36 layers, d 2560, 32/8 heads,
+                   vocab 151936; weights from ``--seed``, cast once to
+                   bf16): 8 requests of 512 prompt tokens fed through
+                   ``serve_step``, then 64 greedy tokens; every attention
+                   layer of every step must launch the paged kernel;
+6. serve-parity -- reduced qwen3-4b, the same parameters and tokens
+                   decoded on the card (kernel) and on the CPU (plain
+                   version);
+7. elastic-kv   -- ``run_serving`` with qwen3-4b's KV geometry (one 9 MiB
+                   MS per 64-token block, frames in HBM) under pressure;
+                   every block read back equal to its host mirror.
 
 The last two lines of standard output are the kernel table and the
 device line as JSON. No card, or no ``src/repro_torch`` beside this
@@ -36,6 +51,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 
 # H100 SXM peaks: HBM bandwidth (NVIDIA data sheet) and the INT32 rate
 # of the integer kernels' operation bound. The data sheet lists no INT32
@@ -44,6 +60,9 @@ ROOT = Path(__file__).resolve().parent
 # rate, a multiply-add counted as two operations as there
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+# float32 outside the tensor cores (data sheet), the rate of the paged
+# attention kernel's f32 arithmetic
+FP32_OPS_PER_S = 67e12
 
 # paper Fig 15c page mix, as benchmarks/workload.py
 ZERO_FRACTION = 0.7679
@@ -54,14 +73,24 @@ N_IMAGES = 64
 # every fault of the phase
 PASSIVE_WINDOW_MS = 128
 
+SWAP_SOURCE = "src/repro_torch/csrc/swap_kernels.cu"
+ATTN_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 KERNELS = {
-    # name: (ops counter, TPU kernel it replaces)
-    "gather_rows": ("gather", "src/repro/kernels/swap_copy.py:40"),
-    "scatter_rows_": ("scatter", "src/repro/kernels/swap_copy.py:69"),
-    "zero_rows": ("zero", "src/repro/kernels/zero_detect.py:42"),
-    "fletcher_rows": ("fletcher", "src/repro/kernels/crc32c.py:60"),
+    # name: (ops counter, TPU kernel it replaces, source)
+    "gather_rows": ("gather", "src/repro/kernels/swap_copy.py:40", SWAP_SOURCE),
+    "scatter_rows_": ("scatter", "src/repro/kernels/swap_copy.py:69", SWAP_SOURCE),
+    "zero_rows": ("zero", "src/repro/kernels/zero_detect.py:42", SWAP_SOURCE),
+    "fletcher_rows": ("fletcher", "src/repro/kernels/crc32c.py:60", SWAP_SOURCE),
+    "paged_decode_attention": ("paged_attn",
+                               "src/repro/kernels/paged_attention.py:104", ATTN_SOURCE),
 }
-SOURCE = "src/repro_torch/csrc/swap_kernels.cu"
+SWAP_COUNTERS = ("gather", "scatter", "zero", "fletcher")
+
+# the serve phase: qwen3-4b, 8 requests of 512 prompt tokens, 64 new each
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen3-4b", 8, 512, 64
+SERVE_MAX_SEQ = 2048
+# the paged-attention tolerances of tests/test_kernels.py
+ATTN_TOL = {"float32": 2e-5, "float16": 2e-2, "bfloat16": 2e-2}
 
 
 def fail(msg: str) -> None:
@@ -104,10 +133,17 @@ def time_us(torch, fn, inner: int = 40, outer: int = 7) -> float:
     return per_call[len(per_call) // 2]
 
 
-def bound_us(nbytes: int, nops: int) -> tuple:
+def bound_us(nbytes: int, nops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple:
     b = nbytes / HBM_BYTES_PER_S * 1e6
-    o = nops / INT32_OPS_PER_S * 1e6
+    o = nops / ops_per_s * 1e6
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+def free_device(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- kernels
@@ -225,6 +261,91 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
                         "bound_us": r["bound"][0], "bound_by": r["bound"][1],
                         "library_us": r["library_us"]}))
     return results
+
+
+def check_paged_attention(torch, ops, ref, seed: int) -> dict:
+    """Phase 2, paged decode attention: the kernel against its plain
+    version within the tolerances of tests/test_kernels.py -- at the serve
+    phase's shape (8 sequences, qwen3-4b's 32/8 heads of 128, 64-token
+    blocks, 2048 positions, a permuted table, bf16), with lengths from 0
+    to 2048, and on the f32/f16 sweep and the reduced configs' f32-over-
+    bf16 pair; then timed at kv_len 512 against the plain version and
+    ``index_select`` + ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed + 3)
+
+    def inputs(B, H, KV, hd, bt, mbs, q_dt, pool_dt, lens):
+        q = torch.randn((B, H, hd), generator=g).to(q_dt)
+        pool = torch.randn((B * mbs, bt, 2, KV, hd), generator=g).to(pool_dt)
+        table = torch.randperm(B * mbs, generator=g).to(torch.int32)
+        return [q.to(dev), pool.to(dev), table.view(B, mbs).to(dev),
+                torch.tensor(lens, dtype=torch.int32, device=dev)]
+
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    main_shape = (SERVE_BATCH, 32, 8, 128, 64, SERVE_MAX_SEQ // 64)
+    cases = [("main", main_shape, bf16, bf16, [0, 1, 63, 64, 65, 512, 2048, 1000]),
+             ("reduced", (2, 4, 2, 32, 8, 4), f32, bf16, [0, 29]),
+             ("mqa48", (2, 48, 1, 128, 64, 4), bf16, bf16, [200, 256])]
+    for i, (B, H, KV, hd, bt, mbs) in enumerate([(2, 8, 2, 32, 8, 4),
+                                                 (1, 4, 4, 64, 16, 2),
+                                                 (3, 16, 1, 32, 8, 3)]):
+        lens = [0, mbs * bt, bt + 3][:B]
+        cases += [(f"sweep{i}_f32", (B, H, KV, hd, bt, mbs), f32, f32, lens),
+                  (f"sweep{i}_f16", (B, H, KV, hd, bt, mbs), f16, f16, lens)]
+    err = {}
+    for label, shape, q_dt, pool_dt, lens in cases:
+        args = inputs(*shape, q_dt, pool_dt, lens)
+        got = ops.paged_decode_attention(*args)
+        want = ref.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[str(q_dt).split(".")[-1]]
+        if not e <= tol:
+            fail(f"paged_decode_attention differs from plain at {label} "
+                 f"{shape} {q_dt}/{pool_dt}: max abs err {e} > {tol}")
+        if not torch.equal(got[0], torch.zeros_like(got[0])) and lens[0] == 0:
+            fail(f"paged_decode_attention: kv_len 0 did not give zeros at {label}")
+        err[label] = e
+    log(json.dumps({"paged_attention_check": err}))
+
+    # timing: every sequence at kv_len 512, the serve phase's shape
+    B, H, KV, hd, bt, mbs = main_shape
+    q, pool, table, kv_len = inputs(*main_shape, bf16, bf16, [512] * B)
+    out = torch.empty_like(q)
+    n_blk = 512 // bt
+    pos = torch.arange(n_blk * bt, device=dev)
+    mask = (pos[None, :] < kv_len[:, None])[:, None, None, :]     # (B,1,1,S)
+
+    def library():
+        idx = table[:, :n_blk].reshape(-1)
+        kv = pool.index_select(0, idx).view(B, n_blk * bt, 2, KV, hd)
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kv[:, :, 0].transpose(1, 2),
+            kv[:, :, 1].transpose(1, 2), attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    lib_err = float((library().float()
+                     - ops.paged_decode_attention(q, pool, table, kv_len).float()
+                     ).abs().max())
+    kv_bytes = B * 512 * 2 * KV * hd * pool.element_size()
+    io_bytes = 2 * q.numel() * q.element_size() + table.numel() * 4 + B * 4
+    r = dict(shape=f"q {tuple(q.shape)} bf16, pool {tuple(pool.shape)} bf16, "
+                   f"kv_len 512", max_abs_err=max(err.values()),
+             kernel_us=time_us(torch, lambda: ops.launch_paged_attn(
+                 q, pool, table, kv_len, out)),
+             plain_us=time_us(torch, lambda: ref.paged_decode_attention(
+                 q, pool, table, kv_len), inner=10),
+             library_us=time_us(torch, library),
+             # q.K and p.V: 4 flops per K/V element and query head, in f32
+             bound=bound_us(kv_bytes + io_bytes, 4 * B * H * 512 * hd,
+                            FP32_OPS_PER_S))
+    log(json.dumps({"kernel": "paged_decode_attention", "shape": r["shape"],
+                    "max_abs_err": r["max_abs_err"], "tolerance": ATTN_TOL,
+                    "library_max_abs_err": lib_err,
+                    "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
+                    "bound_us": r["bound"][0], "bound_by": r["bound"][1],
+                    "library_us": r["library_us"]}))
+    return {"paged_decode_attention": r}
 
 
 # ------------------------------------------------------------- main path
@@ -422,7 +543,7 @@ def main_path(torch, np, core, ops, managed: int, seed: int):
         f"{phases['verify_s']:.1f} s ({resident_ms} fully resident)")
     if counters["crc_failures"]:
         fail(f"{counters['crc_failures']} CRC failures on the main path")
-    missing = [k for k, c in launches.items() if c <= 0]
+    missing = [k for k in SWAP_COUNTERS if launches.get(k, 0) <= 0]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
     log(json.dumps({"main_path": {
@@ -485,6 +606,212 @@ def corruption(torch, np, s, core):
     torch.cuda.synchronize()
 
 
+# ----------------------------------------------------------------- serve
+def _device_times(torch, prof) -> tuple:
+    """(device us of every kernel and copy, of the paged-attention
+    kernels, the eight largest entries as [name, us, count]) summed over
+    a profiler window; (None, None, []) if the trace holds no device
+    time. Only device-side events count: an operator's entry repeats the
+    time of the kernels it launched."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(evt.key, float(evt.self_device_time_total), evt.count)
+            for evt in prof.key_averages()
+            if getattr(evt, "device_type", None) == cuda]
+    total = sum(t for _, t, _ in rows)
+    attn = sum(t for k, t, _ in rows if "paged_attn" in k)
+    top = [[k[:60], t, n] for k, t, n in sorted(rows, key=lambda r: -r[1])[:8]]
+    return (total, attn, top) if total > 0 else (None, None, [])
+
+
+def serve_path(torch, ops, seed: int) -> dict:
+    """Phase 5: qwen3-4b decode at full width through ``serve_step``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import serve_step
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=seed, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    M.cast_params(model)                      # f32 master -> bf16, once
+    cache = M.init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    pool_gb = cache["kv_pool"].numel() * cache["kv_pool"].element_size() / 1e9
+    log(f"serve: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads vocab {cfg.vocab}: "
+        f"{n_params / 1e9:.3f} B params ({n_params * 4 / 1e9:.2f} GB f32, "
+        f"{n_params * 2 / 1e9:.2f} GB bf16), KV pool {pool_gb:.2f} GB, "
+        f"set up in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cpu").manual_seed(seed + 5)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=g).to("cuda")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(SERVE_PROMPT):    # the reference has no cache-filling prefill
+        logits, cache = serve_step(model, prompts[:, t], cache, cfg)
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    tok = logits.argmax(-1)
+    step_ms, generated = [], [tok]
+    t_gen = time.perf_counter()
+    for _ in range(SERVE_GEN):
+        t0 = time.perf_counter()
+        logits, cache = serve_step(model, tok, cache, cfg)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        generated.append(tok)
+    gen_s = time.perf_counter() - t_gen      # the whole decode window
+    mean_ms = gen_s / SERVE_GEN * 1e3
+    launches = ops.launches.get("paged_attn", 0)
+    steps = SERVE_PROMPT + SERVE_GEN
+    if launches != cfg.n_layers * steps:
+        fail(f"serve: {launches} paged-attention launches in {steps} steps "
+             f"of {cfg.n_layers} layers")
+    if logits.shape != (SERVE_BATCH, cfg.vocab) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"serve: logits {tuple(logits.shape)} not finite")
+    if cache["kv_len"].tolist() != [steps] * SERVE_BATCH:
+        fail(f"serve: kv_len {cache['kv_len'].tolist()} after {steps} steps")
+    toks = torch.stack(generated, dim=1)
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail("serve: a generated token is outside the vocabulary")
+
+    # the step's byte bound: every weight read once (the embedding only
+    # for the batch's rows), and each layer's K/V at the mean length
+    emb = cfg.vocab * cfg.d_model
+    weight_bytes = (n_params - emb + SERVE_BATCH * cfg.d_model) * 2
+    mean_len = SERVE_PROMPT + (SERVE_GEN + 1) / 2
+    kv_bytes = (cfg.n_layers * SERVE_BATCH * mean_len * 2 * cfg.n_kv_heads
+                * cfg.head_dim_ * 2)
+    bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    med = sorted(step_ms)[len(step_ms) // 2]
+
+    # device time over 8 profiled decode steps, per step; the shares are
+    # of the unprofiled window's mean step (tracing slows the host side)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            logits, cache = serve_step(model, tok, cache, cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    prof_total, prof_attn, prof_top = _device_times(torch, prof)
+    if prof_total is None:
+        log("serve: the profiler recorded no device time")
+    result = {
+        "arch": cfg.name, "params": n_params, "batch": SERVE_BATCH,
+        "prompt_tokens": SERVE_PROMPT, "new_tokens": SERVE_GEN,
+        "prompt_steps_s": prompt_s, "decode_window_s": gen_s,
+        "decode_step_ms_mean": mean_ms, "decode_step_ms_median": med,
+        "decode_step_ms_min": min(step_ms),
+        "tokens_per_s": SERVE_BATCH * SERVE_GEN / gen_s,
+        "step_bound_ms": bound_ms, "weight_bytes": weight_bytes,
+        "kv_bytes_mean": kv_bytes, "paged_attn_launches": launches,
+        "steps": steps,
+        "device_us_per_step": (None if prof_total is None
+                               else prof_total / 8),
+        "device_busy_share": (None if prof_total is None
+                              else prof_total / 8 / (mean_ms * 1e3)),
+        "paged_attn_us_per_step": (None if prof_attn is None
+                                   else prof_attn / 8),
+        "paged_attn_share_of_step": (None if prof_attn is None
+                                     else prof_attn / 8 / (mean_ms * 1e3)),
+        "profiled_step_ms": window_us / 8 / 1e3,
+        "device_top_us_8_steps": prof_top}
+    log(f"serve: {steps} steps; {SERVE_BATCH} x {SERVE_GEN} tokens in "
+        f"{gen_s:.3f} s = {result['tokens_per_s']:.1f} tokens/s, decode step "
+        f"{mean_ms:.3f} ms (median {med:.3f}, min {min(step_ms):.3f}) against "
+        f"a byte bound of {bound_ms:.3f} ms; {launches} paged-attention "
+        f"launches = {cfg.n_layers} x {steps}")
+    log(json.dumps({"serve": result}))
+    del model, cache, logits
+    free_device(torch)
+    return result
+
+
+def serve_parity(torch, ops, seed: int) -> float:
+    """Phase 6: reduced qwen3-4b, the same parameters and tokens on the
+    card (kernel) and on the CPU (plain version); f32 matrix products in
+    full f32 on both."""
+    import copy
+
+    from repro_torch.configs.reduce import reduced_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(SERVE_ARCH)
+    cpu_model = M.init_params(cfg, seed=seed, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    B, S = 4, 24
+    g = torch.Generator(device="cpu").manual_seed(seed + 7)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g)
+    c_cpu = M.init_cache(cfg, B, S, device="cpu")
+    c_gpu = M.init_cache(cfg, B, S, device="cuda")
+    ops.reset_launches()
+    worst = 0.0
+    for t in range(S):
+        l_cpu, c_cpu = M.decode_step(cpu_model, cfg, toks[:, t], c_cpu)
+        l_gpu, c_gpu = M.decode_step(gpu_model, cfg, toks[:, t].cuda(), c_gpu)
+        l_gpu = l_gpu.cpu()
+        worst = max(worst, float((l_gpu - l_cpu).abs().max()
+                                 / l_cpu.abs().max()))
+    launches = ops.launches.get("paged_attn", 0)
+    if launches != cfg.n_layers * S:
+        fail(f"serve-parity: {launches} launches, expected {cfg.n_layers * S}")
+    if not worst < 2e-3:
+        fail(f"serve-parity: card vs CPU logits differ by relative {worst}")
+    pool_err = float((c_gpu["kv_pool"].cpu().float()
+                      - c_cpu["kv_pool"].float()).abs().max())
+    log(json.dumps({"serve_parity": {
+        "arch": cfg.name + " (reduced)", "batch": B, "steps": S,
+        "logits_max_rel_err": worst, "tolerance": 2e-3,
+        "kv_pool_max_abs_err": pool_err, "paged_attn_launches": launches}}))
+    del gpu_model, c_gpu
+    free_device(torch)
+    return worst
+
+
+def elastic_kv(torch, ops, seed: int) -> dict:
+    """Phase 7: the serving driver with qwen3-4b's KV geometry, frames in
+    HBM. The default traffic of launch/serve.py (24 sequences, 30 turns of
+    batch 4, prompt 24, gen 8) fills ~33 blocks of 64 tokens: under its 48
+    physical blocks nothing would be reclaimed, so 24 physical blocks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serving
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stats = run_serving(get_config(SERVE_ARCH), n_seqs=24, phys_blocks=24,
+                        turns=30, batch=4, prompt_len=24, gen_len=8,
+                        seed=seed, device="cuda", verify=True)
+    dt = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in SWAP_COUNTERS}
+    m, res = stats["metrics"], stats["residency"]
+    if m["ms_swapped_out"] <= 0:
+        fail("elastic-kv: no KV block was swapped out")
+    if m["crc_failures"]:
+        fail(f"elastic-kv: {m['crc_failures']} CRC failures")
+    if stats["verified_blocks"] != res["total_blocks"]:
+        fail(f"elastic-kv: read back {stats['verified_blocks']} of "
+             f"{res['total_blocks']} blocks")
+    missing = [k for k in ("gather", "zero", "fletcher") if launches[k] <= 0]
+    if missing:
+        fail(f"elastic-kv: swap kernels not launched: {missing}")
+    out = {"seconds": dt, "residency": res,
+           "verified_blocks": stats["verified_blocks"],
+           "launches": launches, **{k: m[k] for k in (
+               "ms_swapped_out", "mp_swapped_out", "mp_swapped_in", "faults",
+               "zero_mps", "compressed_mps", "compression_ratio", "crc_failures")},
+           "fault_latency": m["fault_latency"]}
+    log(json.dumps({"elastic_kv": out}))
+    free_device(torch)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--managed-ms", type=int, default=16384,
@@ -516,6 +843,7 @@ def main() -> int:
 
     # 2. kernels
     timed = check_kernels(torch, ops, ref, args.seed)
+    timed.update(check_paged_attention(torch, ops, ref, args.seed))
 
     # 3. main path, 4. corruption
     s, launches = main_path(torch, np, core, ops, args.managed_ms, args.seed)
@@ -523,18 +851,27 @@ def main() -> int:
         corruption(torch, np, s, core)
     finally:
         s.close()
+    del s
+    free_device(torch)
+
+    # 5. serve, 6. serve-parity, 7. elastic-kv
+    served = serve_path(torch, ops, args.seed)
+    launches["paged_attn"] = served["paged_attn_launches"]
+    serve_parity(torch, ops, args.seed)
+    elastic_kv(torch, ops, args.seed)
 
     rows = []
-    for name, (counter, replaces) in KERNELS.items():
+    for name, (counter, replaces, source) in KERNELS.items():
         r = timed[name]
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[counter],
             "max_abs_err": r["max_abs_err"],
             "ms": r["kernel_us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
             "bound_ms": r["bound"][0] / 1e3, "bound_by": r["bound"][1],
             "library_ms": (None if r["library_us"] is None
                            else r["library_us"] / 1e3)})
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,15 +6,16 @@ Layering (bottom up), as in ``repro.core``:
   -> lru -> watermark -> swap (engine) -> scheduler (hv_sched)
   -> system (facade) -> dma
   -> guest (GuestSpace: the one sanctioned guest-memory surface)
+  -> elastic_kv (ElasticKVCache: Taiji under a serving node's KV cache)
 
-Not ported yet: hotswitch / hotupgrade and the framework integrations
-(elastic_kv / elastic_params).
+Not ported yet: hotswitch / hotupgrade and elastic_params.
 """
 from .config import (ABI_VERSION, BackendConfig, LRUConfig, SchedulerConfig,
                      TaijiConfig, WatermarkConfig, small_test_config)
 from .errors import (ABIMismatchError, CorruptionError, InvalidStateError,
                      MpoolExhaustedError, OutOfMemoryError, PinnedError,
                      TaijiError)
+from .elastic_kv import ElasticKVCache, KVGeometry, make_kv_taiji_config
 from .guest import GuestObserver, GuestSpace, MSView
 from .system import TaijiSystem, import_images
 
@@ -25,4 +26,5 @@ __all__ = [
     "CorruptionError", "PinnedError", "ABIMismatchError", "InvalidStateError",
     "GuestObserver", "GuestSpace", "MSView",
     "TaijiSystem", "import_images",
+    "ElasticKVCache", "KVGeometry", "make_kv_taiji_config",
 ]

@@ -1,11 +1,13 @@
-"""Build and load the swap kernels' shared library (``csrc/swap_kernels.cu``).
+"""Build and load the port's kernel library from every source in ``SOURCES``
+(``csrc/swap_kernels.cu``, ``csrc/paged_attention.cu``).
 
-The source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
-plain-C shared library and loaded with :mod:`ctypes`; nothing includes
-PyTorch's headers, so a build takes seconds. The library lands in
-``build/repro_torch/`` at the root of the checkout under a name keyed by
-a hash of the source and the flags, so an edit rebuilds it and an
-unchanged tree reuses it.
+On first use each source is compiled with ``nvcc`` for ``sm_90a`` into an
+object file -- one ``nvcc`` per source, all started together -- and the
+objects are linked into one plain-C shared library, loaded with
+:mod:`ctypes`; nothing includes PyTorch's headers, so a build takes
+seconds. The library lands in ``build/repro_torch/`` at the root of the
+checkout under a name keyed by a hash of every source and the flags, so
+an edit rebuilds it and an unchanged tree reuses it.
 
 Nothing here runs at import time: the CPU tests import every module and
 have no ``nvcc``.
@@ -17,24 +19,33 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 from ..analysis.lock_order import named_lock
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "swap_kernels.cu"
+SOURCES = (_PKG / "csrc" / "swap_kernels.cu",
+           _PKG / "csrc" / "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I32 = ctypes.c_int
 # entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "swap_gather_rows": (_VP, _VP, _VP, _I64, _I64, _VP),
     "swap_scatter_rows": (_VP, _VP, _VP, _I64, _I64, _VP),
     "swap_zero_rows": (_VP, _VP, _I64, _I64, _VP),
     "swap_fletcher_rows": (_VP, _VP, _I64, _I64, _VP),
+    # q, pool, block_table, kv_len, out, workspace, B, H, KV, hd, bt, mbs,
+    # n_blocks, n_split, q dtype, pool dtype, scale, stream
+    "paged_attn_decode": (_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64,
+                          _I64, _I64, _I64, _I64, _I64, _I32, _I32,
+                          ctypes.c_float, _VP),
 }
 
 _lock = named_lock("kernels.build")
@@ -52,36 +63,60 @@ def _nvcc() -> str:
     path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if not path.exists():
         raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin): the swap kernels are "
+            "nvcc not found (PATH, $CUDA_HOME/bin): the kernels are "
             "built from source on first use on a CUDA machine")
     return str(path)
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libswap_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the library unless a build of this exact source exists.
-    Returns its path. ``verbose`` adds ``-Xptxas -v`` and prints the
-    compiler's report (registers, shared memory, spills per kernel)."""
-    out = library_path()
-    if out.exists() and not verbose:
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(SOURCE)]
+def _run(cmd) -> str:
+    """Run one nvcc; its output, headed by its source and wall time."""
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
+    what = Path(cmd[-1]).name if "-c" in cmd else "link"
+    return (f"nvcc {what}: {time.perf_counter() - t0:.1f} s\n"
+            f"{proc.stdout}{proc.stderr}")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the library unless a build of this exact source exists.
+    Returns its path. ``verbose`` adds ``-Xptxas -v`` and prints each
+    nvcc's wall time and the compiler's report (registers, shared
+    memory, spills per kernel)."""
+    out = library_path()
+    if out.exists() and not verbose:
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+                 "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    try:
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            reports = list(pool.map(_run, compiles))
+        reports.append(_run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                             *(str(o) for o in objs)]))
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(proc.stdout + proc.stderr, end="")
+        print("".join(reports), end="")
     os.replace(tmp, out)
     return out
 

@@ -1,18 +1,21 @@
-"""Wrappers of the four swap data-path kernels.
+"""Wrappers of the port's kernels: the four swap data-path kernels and
+paged decode attention.
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches
 on where its tensors live:
 
 * on a CUDA device it launches the hand-written Hopper kernel from
-  ``csrc/swap_kernels.cu`` on the current stream and bumps
-  ``launches[name]`` -- there is no fallback: a kernel that does not
-  build or launch raises;
+  ``csrc/swap_kernels.cu`` or ``csrc/paged_attention.cu`` on the current
+  stream and bumps ``launches[name]`` -- there is no fallback: a kernel
+  that does not build or launch raises;
 * on the CPU it runs the plain version in :mod:`.ref`, and counts
   nothing.
 
-Index vectors come from the host bitmaps (numpy); the wrappers check
-them against the pool on the host and copy them to the device once per
-call.
+Index vectors of the swap kernels come from the host bitmaps (numpy);
+the wrappers check them against the pool on the host and copy them to
+the device once per call. Paged attention takes its block table and
+lengths on the device and never synchronises: the kernel itself traps
+on a table entry out of range.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from . import _build, ref
 
 # launches of each kernel since the last reset; plain integers, bumped
 # only where a kernel is launched. hv_sched threads launch too, so every
-# bump and reset holds the lock (a bare += can lose an increment)
+# bump and reset holds the lock (a bare += can lose an increment). The
+# paged-attention entry ("paged_attn") appears with its first launch
 launches: Dict[str, int] = {"gather": 0, "scatter": 0, "zero": 0,
                             "fletcher": 0}
 _count_lock = named_lock("metrics")
@@ -40,7 +44,7 @@ def reset_launches() -> None:
 
 def _count(name: str) -> None:
     with _count_lock:
-        launches[name] += 1
+        launches[name] = launches.get(name, 0) + 1
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -199,6 +203,107 @@ def launch_fletcher(blocks: torch.Tensor, out: torch.Tensor) -> None:
     _count("fletcher")
 
 
+# ---------------------------------------------------------- paged attention
+# dtype codes of csrc/paged_attention.cu, and the (q, pool) pairs it takes
+_ATTN_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+ATTN_DTYPE_PAIRS = frozenset({(torch.bfloat16, torch.bfloat16),
+                              (torch.float32, torch.bfloat16),
+                              (torch.float32, torch.float32),
+                              (torch.float16, torch.float16)})
+_ATTN_CHUNK = 64                # positions per split, as kChunk in the source
+
+
+def attn_splits(mbs: int, bt: int) -> int:
+    """Splits (thread blocks per sequence and KV head) that cover a
+    table of ``mbs`` blocks of ``bt`` tokens; sizes the workspace."""
+    return -(-mbs * bt // _ATTN_CHUNK)
+
+
+def _check_table_host(block_table: torch.Tensor, kv_len: torch.Tensor,
+                      n_blocks: int, bt: int) -> None:
+    """The entries a sequence reads (context blocks below
+    ``ceil(kv_len / bt)``) must name a pool block; CPU tensors only."""
+    mbs = block_table.shape[1]
+    used = (torch.arange(mbs)[None, :] * bt) < kv_len.to(torch.int64)[:, None]
+    bad = used & ((block_table < 0) | (block_table >= n_blocks))
+    if bool(bad.any()):
+        b, j = (int(x) for x in bad.nonzero()[0])
+        raise IndexError(
+            f"paged_decode_attention: block_table[{b}, {j}] = "
+            f"{int(block_table[b, j])} is outside the pool's {n_blocks} blocks")
+
+
+def paged_decode_attention(q: torch.Tensor, kv_pool: torch.Tensor,
+                           block_table: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """GQA decode attention through a block table.
+
+    q: (B, H, hd); kv_pool: (n_blocks, bt, 2, KV, hd); block_table:
+    (B, mbs) int32; kv_len: (B,) int32 -> (B, H, hd) in q's dtype. Query
+    heads group KV-major (``q[b].reshape(KV, H // KV, hd)``); positions
+    at or past ``kv_len[b]`` are left out, and ``kv_len == 0`` gives
+    zeros. On CUDA tensors the (q, pool) dtypes must be one of
+    ``ATTN_DTYPE_PAIRS``; a head size or a query-head group the kernel
+    does not take fails the launch with ``RuntimeError``.
+    """
+    name = "paged_decode_attention"
+    if q.dim() != 3 or kv_pool.dim() != 5 or kv_pool.shape[2] != 2:
+        raise ValueError(f"{name}: expects q (B, H, hd) and pool (n_blocks, "
+                         f"bt, 2, KV, hd), got {tuple(q.shape)} and "
+                         f"{tuple(kv_pool.shape)}")
+    B, H, hd = q.shape
+    n_blocks, bt, _, KV, hd_pool = kv_pool.shape
+    if hd_pool != hd or KV == 0 or H % KV:
+        raise ValueError(f"{name}: pool {tuple(kv_pool.shape)} does not fit "
+                         f"q {tuple(q.shape)}")
+    if block_table.dim() != 2 or block_table.shape[0] != B \
+            or tuple(kv_len.shape) != (B,):
+        raise ValueError(f"{name}: block_table {tuple(block_table.shape)} and "
+                         f"kv_len {tuple(kv_len.shape)} do not fit batch {B}")
+    if block_table.dtype != torch.int32 or kv_len.dtype != torch.int32:
+        raise TypeError(f"{name}: block_table and kv_len must be int32, got "
+                        f"{block_table.dtype} and {kv_len.dtype}")
+    for t in (q, kv_pool, block_table, kv_len):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if not _on_cuda(name, q, kv_pool, block_table, kv_len):
+        _check_table_host(block_table, kv_len, n_blocks, bt)
+        return ref.paged_decode_attention(q, kv_pool, block_table, kv_len)
+    if (q.dtype, kv_pool.dtype) not in ATTN_DTYPE_PAIRS:
+        raise TypeError(f"{name}: the CUDA kernel takes (q, pool) dtypes "
+                        f"{sorted((str(a), str(b)) for a, b in ATTN_DTYPE_PAIRS)}, "
+                        f"got ({q.dtype}, {kv_pool.dtype})")
+    out = torch.empty_like(q)
+    launch_paged_attn(q, kv_pool, block_table, kv_len, out)
+    return out
+
+
+def launch_paged_attn(q: torch.Tensor, kv_pool: torch.Tensor,
+                      block_table: torch.Tensor, kv_len: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """One paged-attention launch on already-checked device operands:
+    the split kernel and the merge of its partials, through an f32
+    workspace of ``B * H * n_split * (hd + 2)`` elements."""
+    lib = _build.load()
+    B, H, hd = q.shape
+    n_blocks, bt, _, KV, _ = kv_pool.shape
+    mbs = block_table.shape[1]
+    n_split = attn_splits(mbs, bt)
+    ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.paged_attn_decode(
+            q.data_ptr(), kv_pool.data_ptr(), block_table.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, KV, hd,
+            bt, mbs, n_blocks, n_split, _ATTN_DTYPE_CODES[q.dtype],
+            _ATTN_DTYPE_CODES[kv_pool.dtype], hd ** -0.5, _stream(q))
+    if rc:      # the source decides which head sizes and groups it takes
+        _check_rc(lib, rc, f"paged_decode_attention (H {H}, KV {KV}, hd "
+                           f"{hd}, table {mbs} x {bt})")
+    _count("paged_attn")
+
+
 __all__ = ["launches", "reset_launches", "gather_rows", "scatter_rows_",
            "zero_rows", "fletcher_rows", "launch_gather", "launch_scatter",
-           "launch_zero", "launch_fletcher"]
+           "launch_zero", "launch_fletcher", "paged_decode_attention",
+           "launch_paged_attn", "ATTN_DTYPE_PAIRS", "attn_splits"]

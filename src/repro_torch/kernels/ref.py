@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the swap kernels, written to follow
+"""Plain PyTorch versions of the port's kernels, written to follow
 ``repro/kernels/ref.py`` operation for operation.
 
 They are what :mod:`.ops` runs for tensors on the CPU, and what
-``chip_smoke.py`` holds each CUDA kernel against on the card. Every
-function here is exact (bytes and integers), so the kernels must match
-them bit for bit.
+``chip_smoke.py`` holds each CUDA kernel against on the card. The swap
+functions are exact (bytes and integers), so their kernels must match
+them bit for bit; paged attention is floating point and is held within
+the tolerances of ``tests/test_kernels.py``.
 """
 from __future__ import annotations
 
@@ -51,3 +52,40 @@ def scatter_blocks_(pool: torch.Tensor, indices: torch.Tensor,
                     blocks: torch.Tensor) -> None:
     """Swap-in copy, in place: ``pool[indices[i]] = blocks[i]``."""
     pool.index_copy_(0, indices, blocks)
+
+
+def paged_decode_attention(q: torch.Tensor, kv_pool: torch.Tensor,
+                           block_table: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention through a block table (the EPT walk on the I/O path).
+
+    q: (B, H, hd); kv_pool: (n_blocks, bt, 2, KV, hd); block_table:
+    (B, mbs) int; kv_len: (B,) int. Returns (B, H, hd) in q's dtype.
+
+    As the reference's oracle, except that a sequence with ``kv_len ==
+    0`` gets zeros, as the Pallas kernel gives it (the oracle's softmax
+    over an all-masked row would return the mean of V). Table entries
+    of context blocks at or past ``ceil(kv_len / bt)`` are never used.
+    """
+    B, H, hd = q.shape
+    _, bt, _, KV, _ = kv_pool.shape
+    mbs = block_table.shape[1]
+    kv_len = kv_len.to(torch.int64)
+    # the entries of blocks no position reads may be anything: point them
+    # at block 0 (their scores are masked below)
+    used = (torch.arange(mbs, device=q.device)[None, :] * bt) < kv_len[:, None]
+    table = torch.where(used, block_table.to(torch.int64),
+                        torch.zeros_like(block_table, dtype=torch.int64))
+    gathered = kv_pool[table]                      # (B, mbs, bt, 2, KV, hd)
+    seq = gathered.reshape(B, mbs * bt, 2, KV, hd)
+    k, v = seq[:, :, 0], seq[:, :, 1]
+    g = H // KV
+    qg = q.reshape(B, KV, g, hd).float() * hd ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    pos = torch.arange(mbs * bt, device=q.device)
+    mask = pos[None, None, None, :] < kv_len[:, None, None, None]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    o = torch.where(kv_len[:, None, None, None] > 0, o, torch.zeros_like(o))
+    return o.reshape(B, H, hd).to(q.dtype)

@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_importing_the_port_loads_no_jax_or_reference():
-    code = ("import sys, repro_torch.core.system, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch.core.system, repro_torch.kernels.ops, "
+            "repro_torch.models.model, repro_torch.launch.serve, "
+            "repro_torch.core.elastic_kv, repro_torch.train.steps; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
