@@ -13,10 +13,12 @@ freeing its device memory before the next:
                    card's name and power limit;
 2. kernels      -- hold each of the four swap kernels against its plain
                    PyTorch version on the card (exact equality) at the
-                   main-path shapes and at ragged shapes, and paged decode
+                   main-path shapes and at ragged shapes, paged decode
                    attention within its tolerances at the serve path's
-                   shape and the f32/f16 sweep; time kernel, plain version
-                   and library call;
+                   shape and the f32/f16 sweep, and the int8 quantize
+                   pair bit for bit (tests/test_kernels.py's sweep in
+                   f32/f16/bf16, zero, -0.0 and tie MPs, qwen3-4b's KV
+                   block); time kernel, plain version and library call;
 3. main         -- Taiji's swap data path at the paper's deployment size
                    (2 MiB MS, 4 KiB MP, ``--managed-ms`` managed MSs of
                    guest frames in HBM, +50% elastic): fill past physical
@@ -25,17 +27,25 @@ freeing its device memory before the next:
                    every live MS checked byte for byte;
 4. corrupt      -- a flipped extent tag must raise CorruptionError from
                    the device-side check;
-5. serve        -- qwen3-4b at full width (36 layers, d 2560, 32/8 heads,
+5. hot-switch   -- a plain system with ``--managed-ms`` MSs of frames in
+                   HBM, one service thread per PCPU writing and reading
+                   through it, is hot-switched into Taiji; the swap engine
+                   is installed (v1), swaps out through the entry table,
+                   is hot-upgraded to v2 while the services fault, and v2
+                   reclaims; every MS checked byte for byte;
+6. serve        -- qwen3-4b at full width (36 layers, d 2560, 32/8 heads,
                    vocab 151936; weights from ``--seed``, cast once to
                    bf16): 8 requests of 512 prompt tokens fed through
                    ``serve_step``, then 64 greedy tokens; every attention
                    layer of every step must launch the paged kernel;
-6. serve-parity -- reduced qwen3-4b, the same parameters and tokens
+7. serve-parity -- reduced qwen3-4b, the same parameters and tokens
                    decoded on the card (kernel) and on the CPU (plain
                    version);
-7. elastic-kv   -- ``run_serving`` with qwen3-4b's KV geometry (one 9 MiB
+8. elastic-kv   -- ``run_serving`` with qwen3-4b's KV geometry (one 9 MiB
                    MS per 64-token block, frames in HBM) under pressure;
-                   every block read back equal to its host mirror.
+                   every block read back equal to its host mirror;
+9. elastic-serving -- the elastic-serving flow with that geometry: the
+                   swap engine hot-upgraded v1 -> v2 halfway, under load.
 
 The last two lines of standard output are the kernel table and the
 device line as JSON. No card, or no ``src/repro_torch`` beside this
@@ -47,7 +57,9 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
+from array import array
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -75,14 +87,26 @@ PASSIVE_WINDOW_MS = 128
 
 SWAP_SOURCE = "src/repro_torch/csrc/swap_kernels.cu"
 ATTN_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
+QUANT_SOURCE = "src/repro_torch/csrc/quantize.cu"
 KERNELS = {
-    # name: (ops counter, TPU kernel it replaces, source)
-    "gather_rows": ("gather", "src/repro/kernels/swap_copy.py:40", SWAP_SOURCE),
-    "scatter_rows_": ("scatter", "src/repro/kernels/swap_copy.py:69", SWAP_SOURCE),
-    "zero_rows": ("zero", "src/repro/kernels/zero_detect.py:42", SWAP_SOURCE),
-    "fletcher_rows": ("fletcher", "src/repro/kernels/crc32c.py:60", SWAP_SOURCE),
+    # name: (ops counter, TPU kernel it replaces, source, main path)
+    "gather_rows": ("gather", "src/repro/kernels/swap_copy.py:40", SWAP_SOURCE,
+                    "swap path"),
+    "scatter_rows_": ("scatter", "src/repro/kernels/swap_copy.py:69", SWAP_SOURCE,
+                      "swap path"),
+    "zero_rows": ("zero", "src/repro/kernels/zero_detect.py:42", SWAP_SOURCE,
+                  "swap path"),
+    "fletcher_rows": ("fletcher", "src/repro/kernels/crc32c.py:60", SWAP_SOURCE,
+                      "swap path"),
     "paged_decode_attention": ("paged_attn",
-                               "src/repro/kernels/paged_attention.py:104", ATTN_SOURCE),
+                               "src/repro/kernels/paged_attention.py:104",
+                               ATTN_SOURCE, "serve"),
+    # no path of either package calls the quantize pair: their launches
+    # are the quantize check's own
+    "block_quantize": ("quantize", "src/repro/kernels/compress.py:38",
+                       QUANT_SOURCE, None),
+    "block_dequantize": ("dequantize", "src/repro/kernels/compress.py:63",
+                         QUANT_SOURCE, None),
 }
 SWAP_COUNTERS = ("gather", "scatter", "zero", "fletcher")
 
@@ -91,6 +115,19 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen3-4b", 8, 512, 64
 SERVE_MAX_SEQ = 2048
 # the paged-attention tolerances of tests/test_kernels.py
 ATTN_TOL = {"float32": 2e-5, "float16": 2e-2, "bfloat16": 2e-2}
+# the quantize pair at qwen3-4b's KV block: the elastic-KV phase's 24
+# physical blocks of 64 tokens x 36 layers x K+V x 8 heads x 128, bf16,
+# 8 MPs each
+QUANT_CARD_SHAPE, QUANT_CARD_MPS = (24, 4_718_592), 8
+
+# the hot-switch phase: MSs each service (one per PCPU) owns, of which
+# half are swapped out under it just before the upgrade; MSs swapped out
+# under v1, by a swapper thread across the upgrade, and reclaimed by v2
+SERVICE_MS = 8
+V1_SWAP_MS, UPGRADE_SWAP_MS, V2_RECLAIM_MS = 1024, 256, 1024
+# swapped MSs read back through the guest (the rest through export_ms),
+# the fault-latency sample after the switch
+FAULT_SAMPLE_MS = 256
 
 
 def fail(msg: str) -> None:
@@ -348,6 +385,118 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
     return {"paged_decode_attention": r}
 
 
+def check_quantize(torch, ops, ref, seed: int) -> dict:
+    """Phase 2, the int8 quantize pair: both kernels against their plain
+    versions on the card, bit for bit (q, scales, and the dequantized
+    values in f32, f16 and bf16) -- at tests/test_kernels.py's sweep in
+    f32, f16 and bf16, on an all-zero MP, an MP of -0.0 and an MP of ties
+    (absmax exactly 127, so x / scale lands on .5), and at the KV-block
+    shape; then timed there. Dequantize's library call is one
+    ``torch.mul`` of int8 q by the f32 scales into a bf16 ``out`` (f32
+    product, rounded to nearest even on the store), held bit for bit
+    against the kernel. No PyTorch call computes quantize's bits
+    (``torch.quantize_per_channel`` takes the scales as input), so it has
+    no library time. ``launches`` counts the equality checks' launches
+    only, read before the timing."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed + 9)
+    n0 = {k: ops.launches.get(k, 0) for k in ("quantize", "dequantize")}
+    dts = (torch.float32, torch.float16, torch.bfloat16)
+
+    def special():
+        x = torch.zeros(2, 3 * 256)
+        x[0, 256:512] = -0.0
+        ties = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 3.5, -126.5,
+                             126.5, 127.0, -127.0, 0.0])
+        x[0, 512:] = ties.repeat(22)[:256]
+        x[1] = (ties.flip(0) * 0.25).repeat(64)
+        return x
+
+    cases = []
+    for n, elems, mps in [(2, 512, 4), (4, 1024, 8), (1, 2048, 16), (6, 768, 3)]:
+        x = torch.randn((n, elems), generator=g) * 4
+        x[0, :elems // mps] = 0
+        cases += [(f"sweep{n}x{elems}/{mps}", x, mps)]
+    cases += [("zero/-0.0/ties", special(), 3)]
+    for label, x, mps in cases:
+        for dt in dts:
+            xd = x.to(dt).to(dev)
+            q, s = ops.block_quantize(xd, mps)
+            pq, ps = ref.block_quantize(xd, mps)
+            torch.cuda.synchronize()
+            if not (torch.equal(q, pq) and torch.equal(s.view(torch.int32),
+                                                       ps.view(torch.int32))):
+                fail(f"block_quantize != plain at {label} {dt}")
+            for odt in dts:
+                d = ops.block_dequantize(q, s, odt)
+                if not torch.equal(d.view(torch.uint8),
+                                   ref.block_dequantize(pq, ps, odt).view(torch.uint8)):
+                    fail(f"block_dequantize != plain at {label} {dt} -> {odt}")
+    # the KV-block shape, bf16
+    gd = torch.Generator(device=dev).manual_seed(seed + 10)
+    x = (torch.randn(QUANT_CARD_SHAPE, generator=gd, device=dev) * 4).bfloat16()
+    mps = QUANT_CARD_MPS
+    q, s = ops.block_quantize(x, mps)
+    pq, ps = ref.block_quantize(x, mps)
+    if not (torch.equal(q, pq) and torch.equal(s.view(torch.int32),
+                                               ps.view(torch.int32))):
+        fail(f"block_quantize != plain at {QUANT_CARD_SHAPE} bf16 (max q "
+             f"difference {int((q.int() - pq.int()).abs().max())})")
+    d = ops.block_dequantize(q, s, torch.bfloat16)
+    if not torch.equal(d.view(torch.uint8),
+                       ref.block_dequantize(pq, ps, torch.bfloat16).view(torch.uint8)):
+        fail(f"block_dequantize != plain at {QUANT_CARD_SHAPE} bf16")
+    launches = {k: ops.launches.get(k, 0) - n0[k] for k in n0}
+    del pq, ps
+    out = torch.empty_like(x)
+    lib_out = torch.empty_like(x)
+    n, mp = x.shape[0], x.shape[1] // mps
+
+    def library():
+        torch.mul(q.view(n, mps, mp), s.unsqueeze(-1),
+                  out=lib_out.view(n, mps, mp))
+
+    library()
+    if not torch.equal(lib_out.view(torch.uint8), d.view(torch.uint8)):
+        fail(f"library dequantize (torch.mul) != kernel at {QUANT_CARD_SHAPE} bf16")
+    del d
+    shape = f"{QUANT_CARD_SHAPE} bf16, {mps} MPs of {mp}"
+    n_el = x.numel()
+    results = {
+        "block_quantize": dict(
+            shape=shape, max_abs_err=0.0,
+            kernel_us=time_us(torch, lambda: ops.launch_quantize(x, q, s)),
+            plain_us=time_us(torch, lambda: ref.block_quantize(x, mps), inner=10),
+            library_us=None,
+            # abs, max, divide, round and two clamps per element, in f32
+            bound=bound_us(2 * n_el + n_el + 4 * s.numel(), 6 * n_el,
+                           FP32_OPS_PER_S)),
+        "block_dequantize": dict(
+            shape=shape, max_abs_err=0.0,
+            kernel_us=time_us(torch, lambda: ops.launch_dequantize(q, s, out)),
+            plain_us=time_us(torch, lambda: ref.block_dequantize(
+                q, s, torch.bfloat16), inner=10),
+            library_us=time_us(torch, library),
+            # one multiply per element
+            bound=bound_us(n_el + 4 * s.numel() + 2 * n_el, n_el,
+                           FP32_OPS_PER_S)),
+    }
+    for name, counter in (("block_quantize", "quantize"),
+                          ("block_dequantize", "dequantize")):
+        r = results[name]
+        r["launches"] = launches[counter]
+        log(json.dumps({"kernel": name, "shape": r["shape"],
+                        "equal_to_plain": True, "tolerance": 0,
+                        "cases": [c[0] for c in cases] + [shape],
+                        "launches_in_this_check": r["launches"],
+                        "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
+                        "bound_us": r["bound"][0], "bound_by": r["bound"][1],
+                        "library_us": r["library_us"]}))
+    del x, q, s, out, lib_out
+    free_device(torch)
+    return results
+
+
 # ------------------------------------------------------------- main path
 def per_ms(now: dict, before: dict, n_ms: int) -> dict:
     return {k: (now[k] - before[k]) / n_ms for k in now} if n_ms else {}
@@ -371,12 +520,12 @@ def paper_mix_images(np, n_img: int, mps: int, mp: int, seed: int):
     return imgs.reshape(n_img, mps * mp)
 
 
-def main_path(torch, np, core, ops, managed: int, seed: int):
+def swap_config(managed: int):
+    """The paper's deployment (2 MiB MS, 4 KiB MP, +50% elastic) with
+    ``managed`` MSs of guest frames; returns (config, reserved slots)."""
     from repro_torch.core.config import (BackendConfig, HotPathConfig,
                                          SwapConfig, TaijiConfig,
                                          size_mpool_reserve)
-    from repro_torch.core.virt import NO_PFN
-
     ms_bytes, mps = 2 * 1024 * 1024, 512
     reserve = size_mpool_reserve(ms_bytes, mps, managed, 0.5)
     cfg = TaijiConfig(
@@ -386,6 +535,14 @@ def main_path(torch, np, core, ops, managed: int, seed: int):
                               crc_enabled=True),
         swap=SwapConfig(batch_mps=64,
                         hot_path=HotPathConfig(compress_workers=4)))
+    return cfg, reserve
+
+
+def main_path(torch, np, core, ops, managed: int, seed: int):
+    from repro_torch.core.virt import NO_PFN
+
+    cfg, reserve = swap_config(managed)
+    mps = cfg.mps_per_ms
     n_img = N_IMAGES
     t0 = time.perf_counter()
     images = paper_mix_images(np, n_img, mps, cfg.mp_bytes, seed)
@@ -606,6 +763,321 @@ def corruption(torch, np, s, core):
     torch.cuda.synchronize()
 
 
+# ------------------------------------------------------------ hot switch
+class Service(threading.Thread):
+    """One PCPU's running workload on the plain system: write 16 bytes,
+    then read them back, through the system's accessor, walking every MP
+    of its own MSs at an offset of its own; one pair every 200 us. Keeps
+    each pair's start and latency (ns) and the last payload written at
+    each address."""
+
+    def __init__(self, plain, pcpu: int, pfns) -> None:
+        super().__init__(daemon=True)
+        self.plain, self.pcpu, self.pfns = plain, pcpu, list(pfns)
+        self.start_ns, self.lat_ns = array("q"), array("q")
+        self.last = {}                       # (pfn, offset in MS) -> payload
+        self.errors = []
+        self.stop_flag = threading.Event()
+
+    def run(self) -> None:
+        try:
+            self._loop()
+        except Exception as e:          # reported by the phase, which fails
+            self.errors.append(repr(e))
+
+    def _loop(self) -> None:
+        cfg = self.plain.cfg
+        n, i = len(self.pfns), 0
+        while not self.stop_flag.is_set():
+            p = self.pfns[i % n]
+            off = (i // n) % cfg.mps_per_ms * cfg.mp_bytes + 64 + 32 * self.pcpu
+            payload = bytes([i % 251 + 1]) * 16
+            t0 = time.perf_counter_ns()
+            self.plain.write(self.pcpu, p * cfg.ms_bytes + off, payload)
+            got = self.plain.read(self.pcpu, p * cfg.ms_bytes + off, 16)
+            t1 = time.perf_counter_ns()
+            if got != payload:
+                self.errors.append(f"pfn {p} offset {off}: read {got!r} "
+                                   f"after writing {payload!r}")
+                return
+            self.last[(p, off)] = payload
+            self.start_ns.append(t0)
+            self.lat_ns.append(t1 - t0)
+            i += 1
+            time.sleep(200e-6)
+
+
+def _latency_us(np, services, lo_ns: int, hi_ns: int) -> dict:
+    """p50/p99/max (us) of the services' pairs started in [lo, hi). Copies
+    first: a running service cannot grow an array whose buffer is lent."""
+    parts = []
+    for sv in services:
+        start = np.array(sv.start_ns[:], np.int64)
+        lat = np.array(sv.lat_ns[:], np.int64)
+        k = min(len(start), len(lat))
+        parts.append(lat[:k][(start[:k] >= lo_ns) & (start[:k] < hi_ns)])
+    lat = np.concatenate(parts)
+    if not len(lat):
+        return {"ops": 0}
+    lat = np.sort(lat) / 1e3
+    return {"ops": len(lat), "p50_us": float(lat[len(lat) // 2]),
+            "p99_us": float(lat[int(0.99 * (len(lat) - 1))]),
+            "max_us": float(lat[-1])}
+
+
+def hot_switch_phase(torch, np, core, ops, managed: int, seed: int, smi: str):
+    """Phase 5: a running plain system with ``managed`` MSs of guest
+    frames in HBM is switched into Taiji under its services, its swap
+    engine installed and hot-upgraded v1 -> v2 under load, then every MS
+    is checked byte for byte."""
+    from repro_torch.core.virt import F_SPLIT, NO_PFN
+
+    dev = torch.device("cuda")
+    cfg, _ = swap_config(managed)
+    images = paper_mix_images(np, N_IMAGES, cfg.mps_per_ms, cfg.mp_bytes, seed + 11)
+    dev_images = torch.from_numpy(images).to(dev)
+    rng = np.random.default_rng(seed + 12)
+    ops.reset_launches()
+    out = {}
+
+    # the host OS: every managed frame allocated, identity-mapped, filled
+    plain = core.PlainMemorySystem(cfg, device=dev)
+    n_pcpu = len(plain.pcpu_locks)
+    t0 = time.perf_counter()
+    pfns = [plain.alloc_ms() for _ in range(managed)]
+    want = {p: i % N_IMAGES for i, p in enumerate(pfns)}
+    for i, p in enumerate(pfns):
+        plain.write(i % n_pcpu, p * cfg.ms_bytes, images[want[p]])
+    torch.cuda.synchronize()
+    out["fill_s"] = time.perf_counter() - t0
+    svc = [pfns[k * SERVICE_MS:(k + 1) * SERVICE_MS] for k in range(n_pcpu)]
+    rest = pfns[n_pcpu * SERVICE_MS:]
+    services = [Service(plain, k, svc[k]) for k in range(n_pcpu)]
+    for sv in services:
+        sv.start()
+    try:
+        time.sleep(1.0)
+
+        # the switch, under the services
+        stamps = {}
+        t_sw0 = time.perf_counter_ns()
+        system = core.hot_switch(plain, on_stage=lambda c, st: stamps.setdefault(
+            (c, st), time.perf_counter_ns()))
+        t_sw1 = time.perf_counter_ns()
+        time.sleep(1.0)
+        t_after = time.perf_counter_ns()
+        # the identity map's _free_gfns.remove loop, replayed on a fresh
+        # free list of the same size in the same order
+        free = list(range(cfg.n_virt_ms - 1, cfg.mpool_reserve_ms - 1, -1))
+        t0 = time.perf_counter()
+        for p in pfns:
+            free.remove(p)
+        remove_s = time.perf_counter() - t0
+        pauses = [(stamps[(c, "stage2")] - stamps[(c, "stage1")]) / 1e3
+                  for c in range(n_pcpu)]
+        out.update(
+            switch_s=(t_sw1 - t_sw0) / 1e9,
+            switch_to_first_stage1_s=(stamps[(0, "stage1")] - t_sw0) / 1e9,
+            free_gfns_remove_s=remove_s,
+            pcpu_pause_us=pauses, pcpu_pause_max_us=max(pauses),
+            service_before=_latency_us(np, services, t_sw0 - 10**9, t_sw0),
+            service_across=_latency_us(np, services, t_sw0, t_sw1 + 1),
+            service_after=_latency_us(np, services, t_sw1 + 1, t_after))
+        log(f"hot-switch: {managed} MSs ({managed * cfg.ms_bytes / 2**30:.0f} GiB) "
+            f"filled in {out['fill_s']:.1f} s; switch {out['switch_s']:.3f} s, "
+            f"{out['switch_to_first_stage1_s']:.3f} s to the first stage 1 "
+            f"(identity map; its _free_gfns.remove loop {remove_s:.3f} s); "
+            f"PCPU pause max {out['pcpu_pause_max_us']:.1f} us; service "
+            f"pairs before/across/after: {out['service_before']} / "
+            f"{out['service_across']} / {out['service_after']}")
+
+        # the engine module, v1: swap out switched MSs through the entry table
+        entry = core.EntryOps()
+        t0 = time.perf_counter()
+        core.install_module(system, entry, core.EngineModule(system))
+        out.update(attach_v1_s=time.perf_counter() - t0, records_v1=len(system.reqs))
+        m = system.metrics
+        order = rng.permutation(len(rest))
+        v1_set = [rest[i] for i in order[:V1_SWAP_MS]]
+        up_set = [rest[i] for i in order[V1_SWAP_MS:V1_SWAP_MS + UPGRADE_SWAP_MS]]
+        mp0, t0 = m.mp_swapped_out, time.perf_counter()
+        for g in v1_set:
+            entry.call("swap_out_ms", g)
+        torch.cuda.synchronize()
+        out["v1_swap_out_mp_per_s"] = (m.mp_swapped_out - mp0) / (time.perf_counter() - t0)
+
+        # half of each service's MSs swapped out under it (every PCPU
+        # quiesced at its stop point), so the services fault from here on
+        svc_out = [p for ms in svc for p in ms[:SERVICE_MS // 2]]
+        for lock in plain.pcpu_locks:
+            lock.acquire()
+        try:
+            for g in svc_out:
+                entry.call("swap_out_ms", g)
+        finally:
+            for lock in plain.pcpu_locks:
+                lock.release()
+
+        # the upgrade, while the services fault and a swapper thread
+        # swaps out through the entry table. The swapper leaves 1 ms
+        # between calls: EntryOps.swap_all waits for a moment with no call
+        # in flight and does not hold new calls back, so back-to-back
+        # calls would starve the upgrade (ROADMAP Queue C)
+        swap_log = []
+
+        def swapper():
+            for g in up_set:
+                a = time.perf_counter_ns()
+                n = entry.call("swap_out_ms", g)
+                swap_log.append((a, time.perf_counter_ns(), n))
+                time.sleep(1e-3)
+        faults0 = m.faults
+        th = threading.Thread(target=swapper, daemon=True)
+        th.start()
+        deadline = time.perf_counter() + 120
+        while len(swap_log) < UPGRADE_SWAP_MS // 4 and th.is_alive():
+            if time.perf_counter() > deadline:
+                fail("hot-switch: the swapper thread made no progress")
+            time.sleep(0.005)
+        module = core.EngineModuleV2(system)
+        timed = {}
+
+        def timing(name, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    timed[name] = time.perf_counter() - t
+            return call
+        module.attach = timing("attach", module.attach)
+        entry.swap_all = timing("swap_all", entry.swap_all)
+        t_up0 = time.perf_counter_ns()
+        core.hot_upgrade(system, entry, module)
+        t_up1 = time.perf_counter_ns()
+        th.join(timeout=300)
+        if th.is_alive() or len(swap_log) != UPGRADE_SWAP_MS:
+            fail(f"hot-switch: the swapper thread swapped {len(swap_log)} of "
+                 f"{UPGRADE_SWAP_MS} MSs")
+        v1 = [r for r in swap_log if r[1] <= t_up1]
+        v2 = [r for r in swap_log if r[0] >= t_up1]
+
+        def rate(rows):
+            return (sum(r[2] for r in rows) / ((rows[-1][1] - rows[0][0]) / 1e9)
+                    if rows else None)
+        out.update(
+            upgrade_s=(t_up1 - t_up0) / 1e9, attach_v2_s=timed["attach"],
+            records_v2=len(system.reqs), swap_all_drain_s=timed["swap_all"],
+            upgrade_swapper_mp_per_s_v1=rate(v1), upgrade_swapper_mp_per_s_v2=rate(v2),
+            service_faults_across_upgrade=m.faults - faults0,
+            service_across_upgrade=_latency_us(np, services, t_up0, t_up1 + 1))
+        log(f"hot-switch: v1 attach {out['attach_v1_s']:.4f} s over "
+            f"{out['records_v1']} records, swap-out {out['v1_swap_out_mp_per_s']:.0f} "
+            f"MP/s; upgrade {out['upgrade_s']:.4f} s (v2 attach "
+            f"{out['attach_v2_s']:.4f} s over {out['records_v2']} records, "
+            f"swap_all drain {out['swap_all_drain_s'] * 1e3:.2f} ms) under "
+            f"{out['service_faults_across_upgrade']} faults; swapper "
+            f"{out['upgrade_swapper_mp_per_s_v1']} MP/s under v1, "
+            f"{out['upgrade_swapper_mp_per_s_v2']} under v2")
+        if entry.call("version") != 2 or system.module_version != 2:
+            fail(f"hot-switch: module v{entry.call('version')} after the upgrade")
+
+        # v2 reclaims under pressure: whenever a round reclaims nothing,
+        # the switched guest allocates new MSs until free falls below the
+        # low watermark. The services' MSs are pinned, as the reference's
+        # lock-free access path races a swap-out of the MS it writes
+        # (ROADMAP Queue C)
+        added = {}
+        with system.guest.pin([p for ms in svc for p in ms]):
+            ms0, mp0, rounds, scan_s, dt = m.ms_swapped_out, m.mp_swapped_out, 0, 0.0, 0.0
+            n = 0
+            while m.ms_swapped_out - ms0 < V2_RECLAIM_MS:
+                while n == 0 and system.phys.free_count >= system.watermark.low_ms:
+                    g = system.guest.alloc_ms()
+                    added[g] = int(rng.integers(N_IMAGES))
+                    system.guest.write(g, images[added[g]])
+                t0 = time.perf_counter()
+                system.step_background(reclaim=False)       # LRU scans
+                t1 = time.perf_counter()
+                n = entry.call("reclaim_round")
+                torch.cuda.synchronize()
+                scan_s, dt = scan_s + t1 - t0, dt + time.perf_counter() - t1
+                rounds += 1
+                if rounds > 20_000:
+                    fail(f"hot-switch: v2 reclaimed {m.ms_swapped_out - ms0} MSs "
+                         f"in {rounds} rounds")
+        out.update(allocated_after_switch=len(added), v2_reclaim_rounds=rounds,
+                   v2_reclaim_ms=m.ms_swapped_out - ms0, v2_reclaim_s=dt,
+                   v2_lru_scan_s=scan_s,
+                   v2_reclaim_mp_per_s=(m.mp_swapped_out - mp0) / dt)
+        log(f"hot-switch: v2 reclaimed {out['v2_reclaim_ms']} MSs in {rounds} "
+            f"rounds: {dt:.1f} s in reclaim_round ({out['v2_reclaim_mp_per_s']:.0f} "
+            f"MP/s), {scan_s:.1f} s in LRU scans; {len(added)} MSs allocated "
+            f"after the switch")
+    finally:
+        for sv in services:
+            sv.stop_flag.set()
+        for sv in services:
+            sv.join(timeout=10)
+    errors = [e for sv in services for e in sv.errors]
+    if errors or any(sv.is_alive() for sv in services):
+        fail(f"hot-switch: service errors {errors[:4]}")
+
+    # every MS byte-exact: resident, unsplit MSs against the images on
+    # the device; swapped ones through guest reads (a sample: the faults
+    # after the switch) and export_ms; services' MSs hold their last payloads
+    m.sync()
+    m.reset_fault_latency()
+    t0 = time.perf_counter()
+    expect = {p: images[j] for p, j in want.items()}
+    for sv in services:
+        for p in sv.pfns:
+            expect[p] = expect[p].copy()
+        for (p, off), payload in sv.last.items():
+            expect[p][off:off + 16] = np.frombuffer(payload, np.uint8)
+    touched = {p for sv in services for p in sv.pfns}
+    expect.update({g: images[j] for g, j in added.items()})
+    index = {**want, **added}
+    table, guest = system.virt.table, system.guest
+    sampled = resident = 0
+    for g, img in expect.items():
+        pfn = int(table.pfn[g])
+        if pfn != NO_PFN and not int(table.flags[g]) & F_SPLIT and g not in touched:
+            resident += 1
+            if not torch.equal(system.phys.ms_view(pfn), dev_images[index[g]]):
+                fail(f"hot-switch: resident MS {g} differs from its image")
+        elif sampled < FAULT_SAMPLE_MS or g in touched:
+            sampled += 1
+            if guest.read(g) != img.tobytes():
+                fail(f"hot-switch: guest read of MS {g} differs")
+        else:
+            rows, _ = system.export_ms(g)
+            if not np.array_equal(rows.reshape(-1), img):
+                fail(f"hot-switch: export of MS {g} differs")
+    torch.cuda.synchronize()
+    out["verify_s"] = time.perf_counter() - t0
+    m.sync()
+    fl = m.fault_latency.snapshot()
+    launches = dict(ops.launches)
+    out.update(verified_ms=len(expect), resident_ms=resident, read_ms=sampled,
+               fault_after_switch=fl, crc_failures=m.crc_failures,
+               service_ops=sum(len(sv.lat_ns) for sv in services),
+               launches=launches, entry_version=entry.call("version"))
+    if m.crc_failures:
+        fail(f"hot-switch: {m.crc_failures} CRC failures")
+    missing = [k for k in SWAP_COUNTERS if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"hot-switch: swap kernels not launched: {missing}")
+    log(f"hot-switch: verified {len(expect)} MSs byte-exact in "
+        f"{out['verify_s']:.1f} s ({resident} resident on the device, "
+        f"{sampled} read through the guest: fault p50 {fl['p50_us']:.2f} us "
+        f"p90 {fl['p90_us']:.2f} us); {out['service_ops']} service pairs, "
+        f"0 errors; module v2; {smi}")
+    log(json.dumps({"hot_switch": out}))
+    system.close()
+    return out
+
+
 # ----------------------------------------------------------------- serve
 def _device_times(torch, prof) -> tuple:
     """(device us of every kernel and copy, of the paged-attention
@@ -812,6 +1284,44 @@ def elastic_kv(torch, ops, seed: int) -> dict:
     return out
 
 
+def elastic_serving(torch, ops, seed: int) -> dict:
+    """Phase 9: the elastic-serving flow (``repro_torch.examples.
+    elastic_serving.run``) with qwen3-4b's KV geometry, frames in HBM and
+    hv_sched in the background; the swap engine is hot-upgraded v1 -> v2
+    at turn 20 of 40 under load. 24 physical blocks, not the example's 48:
+    its traffic needs ~48 blocks of 64 tokens, so 48 would barely
+    reclaim (as the elastic-KV phase)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.elastic_serving import run
+
+    log("elastic-serving: qwen3-4b KV geometry (9 MiB MS per 64-token "
+        "block), 24 physical blocks (the example's default 48, cut)")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stats = run(get_config(SERVE_ARCH), phys_blocks=24, device="cuda", seed=seed)
+    dt = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in SWAP_COUNTERS}
+    m = stats["metrics"]
+    if stats["entry_version"] != 2 or stats["module_version"] != 2:
+        fail(f"elastic-serving: module v{stats['entry_version']} at the end")
+    if m["ms_swapped_out"] <= 0:
+        fail("elastic-serving: no MS was swapped out")
+    if m["crc_failures"]:
+        fail(f"elastic-serving: {m['crc_failures']} CRC failures")
+    missing = [k for k in ("gather", "zero", "fletcher") if launches[k] <= 0]
+    if missing:
+        fail(f"elastic-serving: swap kernels not launched: {missing}")
+    out = {"seconds": dt, "module_version": stats["entry_version"],
+           "upgrade_turn": stats["upgrade_turn"], "residency": stats["residency"],
+           "launches": launches, **{k: m[k] for k in (
+               "ms_swapped_out", "mp_swapped_out", "mp_swapped_in", "faults",
+               "compression_ratio", "crc_failures")},
+           "fault_latency": m["fault_latency"]}
+    log(json.dumps({"elastic_serving": out}))
+    free_device(torch)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--managed-ms", type=int, default=16384,
@@ -844,6 +1354,7 @@ def main() -> int:
     # 2. kernels
     timed = check_kernels(torch, ops, ref, args.seed)
     timed.update(check_paged_attention(torch, ops, ref, args.seed))
+    timed.update(check_quantize(torch, ops, ref, args.seed))
 
     # 3. main path, 4. corruption
     s, launches = main_path(torch, np, core, ops, args.managed_ms, args.seed)
@@ -854,23 +1365,30 @@ def main() -> int:
     del s
     free_device(torch)
 
-    # 5. serve, 6. serve-parity, 7. elastic-kv
+    # 5. hot switch and hot upgrade
+    hot_switch_phase(torch, np, core, ops, args.managed_ms, args.seed, smi)
+    free_device(torch)
+
+    # 6. serve, 7. serve-parity, 8. elastic-kv, 9. elastic-serving
     served = serve_path(torch, ops, args.seed)
     launches["paged_attn"] = served["paged_attn_launches"]
     serve_parity(torch, ops, args.seed)
     elastic_kv(torch, ops, args.seed)
+    elastic_serving(torch, ops, args.seed)
 
     rows = []
-    for name, (counter, replaces, source) in KERNELS.items():
+    for name, (counter, replaces, source, path) in KERNELS.items():
         r = timed[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[counter],
+            "replaces": replaces,
+            "launches": launches[counter] if path else r["launches"],
             "max_abs_err": r["max_abs_err"],
             "ms": r["kernel_us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
             "bound_ms": r["bound"][0] / 1e3, "bound_by": r["bound"][1],
             "library_ms": (None if r["library_us"] is None
-                           else r["library_us"] / 1e3)})
+                           else r["library_us"] / 1e3),
+            "main_path": path or "none: launches are the quantize check's own"})
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

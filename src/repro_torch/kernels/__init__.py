@@ -13,5 +13,7 @@ and the wrappers that pick between them.
   fletcher_rows  -- extent-row tags (repro/kernels/crc32c.py:fletcher_checksum)
   paged_decode_attention -- decode attention through the block table
                  (repro/kernels/paged_attention.py:paged_decode_attention)
+  block_quantize / block_dequantize -- per-MP int8 (de)quantization
+                 (repro/kernels/compress.py, on no path of either package)
 """
 from . import ops, ref  # noqa: F401

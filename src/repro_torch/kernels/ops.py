@@ -1,13 +1,14 @@
-"""Wrappers of the port's kernels: the four swap data-path kernels and
-paged decode attention.
+"""Wrappers of the port's kernels: the four swap data-path kernels, paged
+decode attention and the int8 block quantize/dequantize pair.
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches
 on where its tensors live:
 
 * on a CUDA device it launches the hand-written Hopper kernel from
-  ``csrc/swap_kernels.cu`` or ``csrc/paged_attention.cu`` on the current
-  stream and bumps ``launches[name]`` -- there is no fallback: a kernel
-  that does not build or launch raises;
+  ``csrc/swap_kernels.cu``, ``csrc/paged_attention.cu`` or
+  ``csrc/quantize.cu`` on the current stream and bumps
+  ``launches[name]`` -- there is no fallback: a kernel that does not
+  build or launch raises;
 * on the CPU it runs the plain version in :mod:`.ref`, and counts
   nothing.
 
@@ -30,7 +31,8 @@ from . import _build, ref
 # launches of each kernel since the last reset; plain integers, bumped
 # only where a kernel is launched. hv_sched threads launch too, so every
 # bump and reset holds the lock (a bare += can lose an increment). The
-# paged-attention entry ("paged_attn") appears with its first launch
+# paged-attention ("paged_attn") and quantize ("quantize", "dequantize")
+# entries appear with their first launch
 launches: Dict[str, int] = {"gather": 0, "scatter": 0, "zero": 0,
                             "fletcher": 0}
 _count_lock = named_lock("metrics")
@@ -204,8 +206,9 @@ def launch_fletcher(blocks: torch.Tensor, out: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------- paged attention
-# dtype codes of csrc/paged_attention.cu, and the (q, pool) pairs it takes
-_ATTN_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# dtype codes of csrc/paged_attention.cu and csrc/quantize.cu, and the
+# (q, pool) pairs paged attention takes
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 ATTN_DTYPE_PAIRS = frozenset({(torch.bfloat16, torch.bfloat16),
                               (torch.float32, torch.bfloat16),
                               (torch.float32, torch.float32),
@@ -295,15 +298,102 @@ def launch_paged_attn(q: torch.Tensor, kv_pool: torch.Tensor,
         rc = lib.paged_attn_decode(
             q.data_ptr(), kv_pool.data_ptr(), block_table.data_ptr(),
             kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, KV, hd,
-            bt, mbs, n_blocks, n_split, _ATTN_DTYPE_CODES[q.dtype],
-            _ATTN_DTYPE_CODES[kv_pool.dtype], hd ** -0.5, _stream(q))
+            bt, mbs, n_blocks, n_split, _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[kv_pool.dtype], hd ** -0.5, _stream(q))
     if rc:      # the source decides which head sizes and groups it takes
         _check_rc(lib, rc, f"paged_decode_attention (H {H}, KV {KV}, hd "
                            f"{hd}, table {mbs} x {bt})")
     _count("paged_attn")
 
 
+# ------------------------------------------------------- int8 quantization
+
+
+def block_quantize(blocks: torch.Tensor, mps_per_block: int):
+    """Per-MP symmetric int8 quantization: (n, elems) f32/f16/bf16 ->
+    ``(q (n, elems) int8, scales (n, mps_per_block) f32)``, bit for bit
+    :func:`.ref.block_quantize`."""
+    name = "block_quantize"
+    if blocks.dim() != 2:
+        raise ValueError(f"{name}: expects (n, elems), got {tuple(blocks.shape)}")
+    n, elems = blocks.shape
+    if mps_per_block < 1 or elems == 0 or elems % mps_per_block:
+        raise ValueError(f"{name}: {elems} elements do not split into "
+                         f"{mps_per_block} equal MPs")
+    if blocks.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: takes float32, float16 or bfloat16 "
+                         f"blocks, got {blocks.dtype}")
+    if not blocks.is_contiguous():
+        raise ValueError(f"{name}: blocks must be contiguous")
+    if not _on_cuda(name, blocks):
+        return ref.block_quantize(blocks, mps_per_block)
+    q = torch.empty((n, elems), dtype=torch.int8, device=blocks.device)
+    scales = torch.empty((n, mps_per_block), dtype=torch.float32,
+                         device=blocks.device)
+    if n:
+        launch_quantize(blocks, q, scales)
+    return q, scales
+
+
+def launch_quantize(blocks: torch.Tensor, q: torch.Tensor,
+                    scales: torch.Tensor) -> None:
+    """One quantize launch on already-checked device operands: one
+    thread block per MP of ``blocks.numel() // scales.numel()`` elements."""
+    lib = _build.load()
+    with torch.cuda.device(blocks.device):
+        rc = lib.quant_block_quantize(
+            blocks.data_ptr(), q.data_ptr(), scales.data_ptr(), scales.numel(),
+            blocks.numel() // scales.numel(), _DTYPE_CODES[blocks.dtype],
+            _stream(blocks))
+    _check_rc(lib, rc, "block_quantize")
+    _count("quantize")
+
+
+def block_dequantize(q: torch.Tensor, scales: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`block_quantize`: (n, elems) int8 and (n, mps) f32
+    scales -> (n, elems) ``out_dtype`` (f32, f16 or bf16), bit for bit
+    :func:`.ref.block_dequantize`."""
+    name = "block_dequantize"
+    if q.dim() != 2 or scales.dim() != 2 or scales.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: expects q (n, elems) and scales (n, mps), "
+                         f"got {tuple(q.shape)} and {tuple(scales.shape)}")
+    n, elems = q.shape
+    mps = scales.shape[1]
+    if mps < 1 or elems == 0 or elems % mps:
+        raise ValueError(f"{name}: {elems} elements do not split into {mps} "
+                         f"equal MPs")
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError(f"{name}: takes int8 q and float32 scales, got "
+                         f"{q.dtype} and {scales.dtype}")
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: out_dtype must be float32, float16 or "
+                         f"bfloat16, got {out_dtype}")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if not _on_cuda(name, q, scales):
+        return ref.block_dequantize(q, scales, out_dtype)
+    out = torch.empty((n, elems), dtype=out_dtype, device=q.device)
+    if n:
+        launch_dequantize(q, scales, out)
+    return out
+
+
+def launch_dequantize(q: torch.Tensor, scales: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        rc = lib.quant_block_dequantize(
+            q.data_ptr(), scales.data_ptr(), out.data_ptr(), scales.numel(),
+            q.numel() // scales.numel(), _DTYPE_CODES[out.dtype],
+            _stream(q))
+    _check_rc(lib, rc, "block_dequantize")
+    _count("dequantize")
+
+
 __all__ = ["launches", "reset_launches", "gather_rows", "scatter_rows_",
            "zero_rows", "fletcher_rows", "launch_gather", "launch_scatter",
            "launch_zero", "launch_fletcher", "paged_decode_attention",
-           "launch_paged_attn", "ATTN_DTYPE_PAIRS", "attn_splits"]
+           "launch_paged_attn", "ATTN_DTYPE_PAIRS", "attn_splits",
+           "block_quantize", "launch_quantize", "block_dequantize",
+           "launch_dequantize"]

@@ -5,9 +5,13 @@ They are what :mod:`.ops` runs for tensors on the CPU, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card. The swap
 functions are exact (bytes and integers), so their kernels must match
 them bit for bit; paged attention is floating point and is held within
-the tolerances of ``tests/test_kernels.py``.
+the tolerances of ``tests/test_kernels.py``. The int8 block quantizer is
+exact too: its absmax is order-free, and every other step is one IEEE
+operation, so its kernel must match it bit for bit as well.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -41,6 +45,41 @@ def fletcher_checksum(blocks: torch.Tensor) -> torch.Tensor:
     s1 = (xc.sum(dim=-1) % _CHK_P).sum(dim=-1) % _CHK_P
     s2 = (((xc * wc[None]) % _CHK_P).sum(dim=-1) % _CHK_P).sum(dim=-1) % _CHK_P
     return (s1 | (s2 << 16)).to(torch.uint32)
+
+
+def block_quantize(blocks: torch.Tensor, mps_per_block: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-MP symmetric int8 quantization.
+
+    blocks: (n, elems) float -> (q (n, elems) int8, scales (n, mps) f32).
+    Each row is split into ``mps_per_block`` equal MPs with independent
+    absmax scales: ``scale = absmax / 127`` (1 where the MP is all zero)
+    and ``q = clip(round(x / scale), -127, 127)``, rounding half to even.
+
+    Both divisions are true f32 divisions, as in the reference's eager
+    oracle: the divisor is a tensor, because on CUDA torch multiplies by
+    the reciprocal of a Python-number divisor, which can differ in the
+    last bit (as XLA does under ``jit``, so the Pallas kernel's scales
+    sit up to one ulp from the oracle's).
+    """
+    n, elems = blocks.shape
+    mp = elems // mps_per_block
+    x = blocks.reshape(n, mps_per_block, mp).to(torch.float32)
+    absmax = x.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
+    return q.reshape(n, elems), scale
+
+
+def block_dequantize(q: torch.Tensor, scales: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`block_quantize`: ``q * scale`` of its MP in f32,
+    rounded to ``out_dtype`` -> (n, elems)."""
+    n, elems = q.shape
+    mps = scales.shape[-1]
+    x = q.reshape(n, mps, elems // mps).to(torch.float32)
+    return (x * scales[..., None]).reshape(n, elems).to(out_dtype)
 
 
 def gather_blocks(pool: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

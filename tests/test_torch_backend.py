@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread per test worker: see test_torch_hygiene.py
 
 from repro.core import backend as rb  # noqa: E402
 from repro.core import config as rc  # noqa: E402

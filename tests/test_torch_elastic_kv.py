@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread per test worker: see test_torch_hygiene.py
 
 import repro.core.config as RC  # noqa: E402
 import repro.core.elastic_kv as RK  # noqa: E402

@@ -11,7 +11,13 @@ from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# One intra-op thread in every test worker. The suite runs in parallel
+# workers, and torch's default of one OpenMP thread per core in each of
+# them oversubscribes the host's cores, which starves the wall-clock
+# share tests of the reference scheduler (tests/test_scheduler.py). Every
+# test_torch_* file sets it at import.
+torch.set_num_threads(1)
 
 from repro.analysis.lint import lint_paths  # noqa: E402
 
@@ -40,7 +46,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_importing_the_port_loads_no_jax_or_reference():
     code = ("import sys, repro_torch.core.system, repro_torch.kernels.ops, "
             "repro_torch.models.model, repro_torch.launch.serve, "
-            "repro_torch.core.elastic_kv, repro_torch.train.steps; "
+            "repro_torch.core.elastic_kv, repro_torch.train.steps, "
+            "repro_torch.core.hotswitch, repro_torch.core.hotupgrade, "
+            "repro_torch.examples.elastic_serving; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread per test worker: see test_torch_hygiene.py
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402

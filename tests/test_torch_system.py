@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread per test worker: see test_torch_hygiene.py
 
 import repro.core as R  # noqa: E402
 import repro_torch.core as T  # noqa: E402
