@@ -18,7 +18,11 @@ freeing its device memory before the next:
                    shape and the f32/f16 sweep, and the int8 quantize
                    pair bit for bit (tests/test_kernels.py's sweep in
                    f32/f16/bf16, zero, -0.0 and tie MPs, qwen3-4b's KV
-                   block); time kernel, plain version and library call;
+                   block); time kernel, plain version and library call,
+                   paged attention also at the kv_len of ``ATTN_SWEEP``,
+                   Fletcher and paged attention also L2-cold, and with
+                   ``--compare-sources DIR`` both against the earlier
+                   sources in DIR, in turns (old, new, new, old);
 3. main         -- Taiji's swap data path at the paper's deployment size
                    (2 MiB MS, 4 KiB MP, ``--managed-ms`` managed MSs of
                    guest frames in HBM, +50% elastic): fill past physical
@@ -109,6 +113,13 @@ KERNELS = {
                          QUANT_SOURCE, None),
 }
 SWAP_COUNTERS = ("gather", "scatter", "zero", "fletcher")
+# the L2-cold timings write this much between launches: more than the
+# H100's 50 MB L2
+FLUSH_BYTES = 256 << 20
+# kv_len of the paged-attention timing sweep: early in a serve prompt,
+# the serve phase's 512-token prompt, its last decode step, the serve
+# table's capacity
+ATTN_SWEEP = (64, 512, 576, 2048)
 
 # the serve phase: qwen3-4b, 8 requests of 512 prompt tokens, 64 new each
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen3-4b", 8, 512, 64
@@ -170,6 +181,16 @@ def time_us(torch, fn, inner: int = 40, outer: int = 7) -> float:
     return per_call[len(per_call) // 2]
 
 
+def time_cold_us(torch, fn, flush) -> tuple:
+    """Device time of one ``fn()`` call with its inputs out of L2:
+    time(flush + fn) - time(flush), where the flush writes every byte of
+    ``flush`` (FLUSH_BYTES, larger than the L2). Returns (cold us, flush +
+    fn us, flush us)."""
+    both = time_us(torch, lambda: (flush.zero_(), fn()), inner=20)
+    alone = time_us(torch, flush.zero_, inner=20)
+    return both - alone, both, alone
+
+
 def bound_us(nbytes: int, nops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple:
     b = nbytes / HBM_BYTES_PER_S * 1e6
     o = nops / ops_per_s * 1e6
@@ -209,7 +230,8 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
     copy_shapes = [("main64", 512, 4096, 64), ("main13", 512, 4096, 13),
                    ("ragged", 37, 4100, 11)]
     row_shapes = [("main64", 64, 4096), ("main16", 16, 4096),
-                  ("ragged", 16, 4100), ("wrap", 3, 70001)]
+                  ("ragged", 16, 4100), ("wrap", 3, 70001), ("one", 4, 1),
+                  ("fifteen", 5, 15), ("odd", 3, 4097), ("2MiB", 1, 2 ** 21)]
 
     # gather
     err = 0.0
@@ -283,8 +305,11 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
         err = max(err, float(abs(got.astype("int64") - want.astype("int64")).max()))
     x = rows(64, 4096)
     fout = torch.empty(64, dtype=torch.uint32, device=dev)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    cold = time_cold_us(torch, lambda: ops.launch_fletcher(x, fout), flush)
+    del flush
     results["fletcher_rows"] = dict(
-        shape="(64, 4096) uint8", max_abs_err=err,
+        shape="(64, 4096) uint8", max_abs_err=err, cold=cold,
         kernel_us=time_us(torch, lambda: ops.launch_fletcher(x, fout)),
         plain_us=time_us(torch, lambda: ref.fletcher_checksum(x)),
         library_us=None,
@@ -292,11 +317,15 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
         bound=bound_us(64 * 4096 + 4 * 64, 4 * 64 * 4096))
 
     for name, r in results.items():
-        log(json.dumps({"kernel": name, "shape": r["shape"],
-                        "equal_to_plain": True, "tolerance": 0,
-                        "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
-                        "bound_us": r["bound"][0], "bound_by": r["bound"][1],
-                        "library_us": r["library_us"]}))
+        line = {"kernel": name, "shape": r["shape"],
+                "equal_to_plain": True, "tolerance": 0,
+                "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
+                "bound_us": r["bound"][0], "bound_by": r["bound"][1],
+                "library_us": r["library_us"]}
+        if "cold" in r:
+            line.update(l2_cold_us=r["cold"][0], flush_plus_kernel_us=r["cold"][1],
+                        flush_us=r["cold"][2])
+        log(json.dumps(line))
     return results
 
 
@@ -307,7 +336,9 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
     blocks, 2048 positions, a permuted table, bf16), with lengths from 0
     to 2048, and on the f32/f16 sweep and the reduced configs' f32-over-
     bf16 pair; then timed at kv_len 512 against the plain version and
-    ``index_select`` + ``scaled_dot_product_attention``."""
+    ``index_select`` + ``scaled_dot_product_attention``, L2-warm and
+    L2-cold, and at each kv_len of ``ATTN_SWEEP`` beside the library
+    call, L2-warm."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(seed + 3)
@@ -346,43 +377,161 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
         err[label] = e
     log(json.dumps({"paged_attention_check": err}))
 
-    # timing: every sequence at kv_len 512, the serve phase's shape
+    # timing at the serve phase's shape: every sequence at kv_len 512
+    # (the kernel table's row), then the sweep, L2-warm, with the library
+    # call beside each, and the kv_len 512 row L2-cold
     B, H, KV, hd, bt, mbs = main_shape
     q, pool, table, kv_len = inputs(*main_shape, bf16, bf16, [512] * B)
     out = torch.empty_like(q)
-    n_blk = 512 // bt
-    pos = torch.arange(n_blk * bt, device=dev)
-    mask = (pos[None, :] < kv_len[:, None])[:, None, None, :]     # (B,1,1,S)
 
-    def library():
+    def library(kv):
+        n_blk = -(-kv // bt)
+        pos = torch.arange(n_blk * bt, device=dev)
+        mask = (pos[None, :] < kv)[:, None, None, :]              # (1,1,1,S)
         idx = table[:, :n_blk].reshape(-1)
-        kv = pool.index_select(0, idx).view(B, n_blk * bt, 2, KV, hd)
-        return F.scaled_dot_product_attention(
-            q[:, :, None, :], kv[:, :, 0].transpose(1, 2),
-            kv[:, :, 1].transpose(1, 2), attn_mask=mask, enable_gqa=True)[:, :, 0]
 
-    lib_err = float((library().float()
+        def call():
+            kvs = pool.index_select(0, idx).view(B, n_blk * bt, 2, KV, hd)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], kvs[:, :, 0].transpose(1, 2),
+                kvs[:, :, 1].transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)[:, :, 0]
+        return call
+
+    def bound(kv):
+        kv_bytes = B * kv * 2 * KV * hd * pool.element_size()
+        io_bytes = 2 * q.numel() * q.element_size() + table.numel() * 4 + B * 4
+        # q.K and p.V: 4 flops per K/V element and query head, in f32
+        return bound_us(kv_bytes + io_bytes, 4 * B * H * kv * hd, FP32_OPS_PER_S)
+
+    lib_err = float((library(512)().float()
                      - ops.paged_decode_attention(q, pool, table, kv_len).float()
                      ).abs().max())
-    kv_bytes = B * 512 * 2 * KV * hd * pool.element_size()
-    io_bytes = 2 * q.numel() * q.element_size() + table.numel() * 4 + B * 4
+    sweep = {}
+    for kv in ATTN_SWEEP:
+        lens = torch.full((B,), kv, dtype=torch.int32, device=dev)
+        sweep[kv] = dict(
+            kernel_us=time_us(torch, lambda: ops.launch_paged_attn(
+                q, pool, table, lens, out)),
+            library_us=time_us(torch, library(kv)), bound_us=bound(kv)[0])
+        log(json.dumps({"paged_attention_kv_len": kv, "l2": "warm", **sweep[kv]}))
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    cold = time_cold_us(torch, lambda: ops.launch_paged_attn(
+        q, pool, table, kv_len, out), flush)
+    lib_cold = time_cold_us(torch, library(512), flush)
+    del flush
     r = dict(shape=f"q {tuple(q.shape)} bf16, pool {tuple(pool.shape)} bf16, "
                    f"kv_len 512", max_abs_err=max(err.values()),
              kernel_us=time_us(torch, lambda: ops.launch_paged_attn(
                  q, pool, table, kv_len, out)),
              plain_us=time_us(torch, lambda: ref.paged_decode_attention(
                  q, pool, table, kv_len), inner=10),
-             library_us=time_us(torch, library),
-             # q.K and p.V: 4 flops per K/V element and query head, in f32
-             bound=bound_us(kv_bytes + io_bytes, 4 * B * H * 512 * hd,
-                            FP32_OPS_PER_S))
+             library_us=time_us(torch, library(512)), bound=bound(512))
     log(json.dumps({"kernel": "paged_decode_attention", "shape": r["shape"],
                     "max_abs_err": r["max_abs_err"], "tolerance": ATTN_TOL,
                     "library_max_abs_err": lib_err,
                     "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
                     "bound_us": r["bound"][0], "bound_by": r["bound"][1],
-                    "library_us": r["library_us"]}))
+                    "library_us": r["library_us"], "l2_cold_us": cold[0],
+                    "flush_plus_kernel_us": cold[1], "flush_us": cold[2],
+                    "library_l2_cold_us": lib_cold[0],
+                    "kv_len_sweep_l2_warm": sweep}))
     return {"paged_decode_attention": r}
+
+
+def compare_old_new(torch, ops, lib_old, seed: int) -> dict:
+    """Fletcher at (64, 4096) and paged attention at the serve shape
+    (kv_len 512), L2-warm, each timed in turns -- old, new, new, old --
+    against ``lib_old``, a library built from earlier sources of
+    ``csrc/swap_kernels.cu`` and ``csrc/paged_attention.cu`` with the
+    same entry points. Both versions must agree first."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed + 11)
+    x = torch.randint(0, 256, (64, 4096), generator=g, dtype=torch.uint8).to(dev)
+    f_new = torch.empty(64, dtype=torch.uint32, device=dev)
+    f_old = torch.empty_like(f_new)
+
+    def fletcher_old():
+        return lib_old.swap_fletcher_rows(x.data_ptr(), f_old.data_ptr(), 64,
+                                          4096, torch.cuda.current_stream().cuda_stream)
+
+    B, H, KV, hd, bt, mbs = SERVE_BATCH, 32, 8, 128, 64, SERVE_MAX_SEQ // 64
+    q = torch.randn((B, H, hd), generator=g).bfloat16().to(dev)
+    pool = torch.randn((B * mbs, bt, 2, KV, hd), generator=g).bfloat16().to(dev)
+    table = torch.randperm(B * mbs, generator=g).to(torch.int32).view(B, mbs).to(dev)
+    kv_len = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    a_new, a_old = torch.empty_like(q), torch.empty_like(q)
+    n_split = ops.attn_splits(mbs, bt)
+    ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32, device=dev)
+
+    def attn_old():
+        return lib_old.paged_attn_decode(
+            q.data_ptr(), pool.data_ptr(), table.data_ptr(), kv_len.data_ptr(),
+            a_old.data_ptr(), ws.data_ptr(), B, H, KV, hd, bt, mbs, B * mbs,
+            n_split, 2, 2, hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+
+    if fletcher_old() or attn_old():
+        fail("old-vs-new: a launch of the earlier sources failed")
+    ops.launch_fletcher(x, f_new)
+    ops.launch_paged_attn(q, pool, table, kv_len, a_new)
+    torch.cuda.synchronize()
+    if not torch.equal(f_old, f_new):
+        fail("old-vs-new: the two Fletcher kernels disagree")
+    attn_diff = float((a_old.float() - a_new.float()).abs().max())
+    if not attn_diff <= ATTN_TOL["bfloat16"]:
+        fail(f"old-vs-new: the two paged kernels differ by {attn_diff}")
+    out = {}
+    for name, old, new in (
+            ("fletcher_rows", fletcher_old, lambda: ops.launch_fletcher(x, f_new)),
+            ("paged_decode_attention", attn_old,
+             lambda: ops.launch_paged_attn(q, pool, table, kv_len, a_new))):
+        turns = [("old", old), ("new", new), ("new", new), ("old", old)]
+        times = [(which, time_us(torch, fn)) for which, fn in turns]
+        out[name] = {"turns_us": times,
+                     "old_us": sum(t for w, t in times if w == "old") / 2,
+                     "new_us": sum(t for w, t in times if w == "new") / 2}
+    out["paged_decode_attention"]["max_abs_diff"] = attn_diff
+    log(json.dumps({"old_vs_new": out}))
+    free_device(torch)
+    return out
+
+
+def start_old_build(src_dir: Path):
+    """Start one nvcc that builds ``src_dir``'s swap_kernels.cu and
+    paged_attention.cu (earlier versions of this checkout's sources) into
+    a library of their own; returns the process and the library's path."""
+    import atexit
+    from repro_torch.kernels import _build
+    srcs = [src_dir / "swap_kernels.cu", src_dir / "paged_attention.cu"]
+    missing = [str(p) for p in srcs if not p.is_file()]
+    if missing:
+        fail(f"--compare-sources: missing {missing}")
+    out = _build.BUILD_DIR / "compare" / "librepro_torch_kernels_old.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                             "-o", str(out), *map(str, srcs)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def load_old_build(proc, path: Path):
+    """Wait for :func:`start_old_build`'s nvcc and load its library."""
+    import ctypes
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    text = proc.communicate()[0]
+    if proc.returncode:
+        fail(f"--compare-sources: nvcc failed ({proc.returncode}):\n{text}")
+    lib = ctypes.CDLL(str(path))
+    for name in ("swap_fletcher_rows", "paged_attn_decode"):
+        fn = getattr(lib, name)
+        fn.argtypes = list(_build._SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    log(f"build: earlier sources into {path.name} (waited "
+        f"{time.perf_counter() - t0:.1f} s more)")
+    return lib
 
 
 def check_quantize(torch, ops, ref, seed: int) -> dict:
@@ -1328,6 +1477,10 @@ def main() -> int:
                     help="managed 2 MiB MSs of guest frames in HBM "
                          "(16384 = the paper's 32 GiB)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare-sources", type=Path, default=None,
+                    help="a directory with earlier swap_kernels.cu and "
+                         "paged_attention.cu: time Fletcher and paged "
+                         "attention against them, in turns")
     args = ap.parse_args()
 
     import numpy as np
@@ -1340,8 +1493,10 @@ def main() -> int:
     import repro_torch.core as core
     from repro_torch.kernels import _build, ops, ref
 
-    # 1. build
+    # 1. build (the earlier sources, if asked for, beside it)
     t0 = time.perf_counter()
+    old_build = (start_old_build(args.compare_sources.resolve())
+                 if args.compare_sources else None)
     lib = _build.build(verbose=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1355,6 +1510,10 @@ def main() -> int:
     timed = check_kernels(torch, ops, ref, args.seed)
     timed.update(check_paged_attention(torch, ops, ref, args.seed))
     timed.update(check_quantize(torch, ops, ref, args.seed))
+    if old_build:
+        compare_old_new(torch, ops, load_old_build(*old_build), args.seed)
+    else:
+        log("old-vs-new: not measured (no --compare-sources)")
 
     # 3. main path, 4. corruption
     s, launches = main_path(torch, np, core, ops, args.managed_ms, args.seed)

@@ -25,7 +25,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned long long kFletcherP = 65521;  // largest prime < 2^16
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -95,47 +94,116 @@ __global__ void zero_rows_kernel(const uint8_t* __restrict__ x, int64_t elems,
 }
 
 // Replaces repro/kernels/crc32c.py:fletcher_checksum (_fletcher_kernel).
-// Per row: (sum x mod p) | (sum ((i+1) mod p) * x mod p) << 16. The TPU
-// kernel folds tile partials modularly across its sequential grid; here
-// each thread sums its strided bytes exactly in uint64 (a term is below
-// 2^24, so no row that fits in memory can overflow), the block reduces
-// the partials, and one thread takes the modulus. Integer sums are exact
-// in any order, so the tag equals the reference's bit for bit for any
-// row length, including rows past 65521 bytes where the weight wraps.
+// Per row: (sum x mod p) | (sum ((i+1) mod p) * x mod p) << 16.
+//
+// What bounds it on the H100: at the main-path shape (64 rows of 4 KiB)
+// the 256 KiB read takes 0.08 us at 3.35 TB/s, so the launch (~1.5 us
+// replayed from a CUDA graph) and one row's chain of dependent steps are
+// the whole time: so 16-byte loads, 32-bit integer sums and no 64-bit
+// division (a software routine on the card).
+//
+// Design. A row is a head of bytes up to its first 16-byte boundary, a
+// body of 16-byte vectors (uint4 loads) and a byte tail. As (i+1) mod p
+// is i+1 mod p, a vector at byte offset o of the row adds
+//   s1v = sum_j x_j,   s2v = o * s1v + Lv,   Lv = sum_j (j+1) x_j,
+// and both sums are __dp4a over its four words, with 0x01010101 and with
+// the packed local weights 1..16. All of it is uint32: o is stepped mod p
+// (never divided), o * s1v + Lv < 65521 * 4080 + 34680 < 2^28, and each
+// lane folds its two sums mod p once per four vectors (p is a constant,
+// so a fold is a multiply-high), so no partial overflows whatever the
+// row length. A warp takes 2 KiB per pass, each lane's four 16-byte
+// loads in flight together, and a row gets a warp per 2 KiB, up to eight:
+// a 4 KiB row is one block of two warps, so 64 rows keep 64 SMs busy with
+// short chains; two warp reductions (redux.sync) and one barrier end it.
+// Integer sums are exact in any order, so the tag equals the reference's
+// bit for bit for every row length and alignment, rows past 65521 bytes
+// (the weight wraps) included. Rows of 2^31 bytes or more are refused
+// (32-bit offsets).
+constexpr uint32_t kFletcherP = 65521;  // largest prime < 2^16
+constexpr int kFletcherUnroll = 4;      // 16-byte loads in flight per lane
+constexpr int64_t kFletcherWarpBytes = 32 * 16 * kFletcherUnroll;
+
+// Head or tail bytes [lo, hi) of a row, one per thread, into s1 and s2
+// (both kept below p).
+__device__ __forceinline__ void fletcher_bytes(const uint8_t* __restrict__ row,
+                                               uint32_t lo, uint32_t hi,
+                                               uint32_t& s1, uint32_t& s2) {
+  for (uint32_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    const uint32_t v = row[i];
+    s1 = (s1 + v) % kFletcherP;
+    s2 = (s2 + ((i + 1) % kFletcherP) * v) % kFletcherP;  // < 2^25
+  }
+}
+
 __global__ void fletcher_rows_kernel(const uint8_t* __restrict__ x,
-                                     int64_t elems,
+                                     uint32_t elems,
                                      uint32_t* __restrict__ out) {
   const uint8_t* row = x + static_cast<int64_t>(blockIdx.x) * elems;
-  unsigned long long s1 = 0, s2 = 0;
-  // weight (i+1) mod p, stepped by blockDim (< p) without a division
-  unsigned long long w = (threadIdx.x + 1) % kFletcherP;
-  for (int64_t i = threadIdx.x; i < elems; i += blockDim.x) {
-    const unsigned long long v = row[i];
-    s1 += v;
-    s2 += w * v;
-    w += blockDim.x;
-    if (w >= kFletcherP) w -= kFletcherP;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    s1 += __shfl_down_sync(0xffffffffu, s1, off);
-    s2 += __shfl_down_sync(0xffffffffu, s2, off);
-  }
-  __shared__ unsigned long long part1[kThreads / 32], part2[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    part1[warp] = s1;
-    part2[warp] = s2;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long t1 = 0, t2 = 0;
-    for (int k = 0; k < static_cast<int>(blockDim.x >> 5); ++k) {
-      t1 += part1[k];
-      t2 += part2[k];
+  const uint32_t nthr = blockDim.x;
+  const uint32_t head = min(
+      elems, static_cast<uint32_t>((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15));
+  const uint32_t nvec = (elems - head) >> 4;
+  uint32_t s1 = 0, s2 = 0;
+  fletcher_bytes(row, 0, head, s1, s2);
+  fletcher_bytes(row, head + (nvec << 4), elems, s1, s2);
+  const uint4* body = reinterpret_cast<const uint4*>(row + head);
+  // o mod p of this lane's next vector, stepped by 16 * nthr (< p)
+  const uint32_t step = 16 * nthr;
+  uint32_t base = (head + 16 * threadIdx.x) % kFletcherP;
+  for (uint32_t v0 = threadIdx.x; v0 < nvec; v0 += kFletcherUnroll * nthr) {
+    uint4 w[kFletcherUnroll];
+#pragma unroll
+    for (int u = 0; u < kFletcherUnroll; ++u) {
+      const uint32_t v = v0 + u * nthr;
+      w[u] = v < nvec ? body[v] : make_uint4(0, 0, 0, 0);
     }
-    out[blockIdx.x] = static_cast<uint32_t>((t1 % kFletcherP) |
-                                            ((t2 % kFletcherP) << 16));
+    // the kFletcherUnroll vectors' terms, then one fold: t1 <= 8 * 4080
+    // and t2 < 8 * 2^28, so s + t stays below 2^32
+    static_assert(kFletcherUnroll <= 8, "the fold's bound");
+    uint32_t t1 = 0, t2 = 0;
+#pragma unroll
+    for (int u = 0; u < kFletcherUnroll; ++u) {
+      const uint32_t s1v =
+          __dp4a(w[u].x, 0x01010101u, __dp4a(w[u].y, 0x01010101u,
+          __dp4a(w[u].z, 0x01010101u, __dp4a(w[u].w, 0x01010101u, 0u))));
+      const uint32_t lv =
+          __dp4a(w[u].x, 0x04030201u, __dp4a(w[u].y, 0x08070605u,
+          __dp4a(w[u].z, 0x0C0B0A09u, __dp4a(w[u].w, 0x100F0E0Du, 0u))));
+      t1 += s1v;
+      t2 += base * s1v + lv;
+      base += step;
+      if (base >= kFletcherP) base -= kFletcherP;
+    }
+    s1 = (s1 + t1) % kFletcherP;
+    s2 = (s2 + t2) % kFletcherP;
   }
+  // 32 partials below p sum below 2^21: one redux.sync each
+  s1 = __reduce_add_sync(0xffffffffu, s1);
+  s2 = __reduce_add_sync(0xffffffffu, s2);
+  if (nthr > 32) {                     // the same branch for the whole block
+    __shared__ uint32_t part1[kThreads / 32], part2[kThreads / 32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) {
+      part1[warp] = s1 % kFletcherP;
+      part2[warp] = s2 % kFletcherP;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      s1 = s2 = 0;
+      for (uint32_t k = 0; k < nthr / 32; ++k) {
+        s1 += part1[k];
+        s2 += part2[k];
+      }
+    }
+  }
+  if (threadIdx.x == 0)
+    out[blockIdx.x] = (s1 % kFletcherP) | ((s2 % kFletcherP) << 16);
+}
+
+// Threads per row: one warp per 2 KiB pass, from one warp to kThreads.
+int fletcher_threads(int64_t elems) {
+  const int64_t warps = (elems + kFletcherWarpBytes - 1) / kFletcherWarpBytes;
+  return 32 * static_cast<int>(warps < 1 ? 1 : warps > kThreads / 32 ? kThreads / 32 : warps);
 }
 
 }  // namespace
@@ -170,9 +238,11 @@ int swap_zero_rows(const void* x, void* out, int64_t n_rows, int64_t elems,
 
 int swap_fletcher_rows(const void* x, void* out, int64_t n_rows,
                        int64_t elems, void* stream) {
-  fletcher_rows_kernel<<<static_cast<unsigned>(n_rows), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), elems, static_cast<uint32_t*>(out));
+  if (elems >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  fletcher_rows_kernel<<<static_cast<unsigned>(n_rows), fletcher_threads(elems),
+                         0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<uint32_t>(elems),
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -217,8 +217,8 @@ _ATTN_CHUNK = 64                # positions per split, as kChunk in the source
 
 
 def attn_splits(mbs: int, bt: int) -> int:
-    """Splits (thread blocks per sequence and KV head) that cover a
-    table of ``mbs`` blocks of ``bt`` tokens; sizes the workspace."""
+    """Splits (work items per sequence and KV head) that cover a table
+    of ``mbs`` blocks of ``bt`` tokens; sizes the workspace."""
     return -(-mbs * bt // _ATTN_CHUNK)
 
 
@@ -285,8 +285,9 @@ def launch_paged_attn(q: torch.Tensor, kv_pool: torch.Tensor,
                       block_table: torch.Tensor, kv_len: torch.Tensor,
                       out: torch.Tensor) -> None:
     """One paged-attention launch on already-checked device operands:
-    the split kernel and the merge of its partials, through an f32
-    workspace of ``B * H * n_split * (hd + 2)`` elements."""
+    one kernel whose splits leave their partials in an f32 workspace of
+    ``B * H * n_split * (hd + 2)`` elements, the last split of each
+    (sequence, KV head) merging them."""
     lib = _build.load()
     B, H, hd = q.shape
     n_blocks, bt, _, KV, _ = kv_pool.shape

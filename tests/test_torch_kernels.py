@@ -5,17 +5,26 @@ exactly, against ``repro.kernels.ref`` and against the Pallas kernel in
 interpret mode on the shape/dtype sweeps of tests/test_kernels.py, plus
 ragged uint8 rows the CUDA kernels must take. The ``cuda`` tests hold
 the CUDA kernels against the plain versions and skip without a card.
+
+The ``cuda`` tests need neither JAX nor the reference, so ``python -m
+pytest -m cuda tests/test_torch_kernels.py`` runs them on a machine that
+has only the port's dependencies; there the reference's names are None
+and only those tests are selected.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # one thread per test worker: see test_torch_hygiene.py
 
-from repro.kernels import ops as jops  # noqa: E402
-from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+
+try:
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ImportError:       # a card's machine without JAX: the cuda tests only
+    jnp = jops = jref = None
 
 
 def _rng(*key):
@@ -90,6 +99,98 @@ def test_fletcher_ragged_and_wrapping_rows(n, elems, cpu_launches):
     np.testing.assert_array_equal(ops.fletcher_rows(torch.from_numpy(b)).numpy(),
                                   want)
     np.testing.assert_array_equal(jops.batch_checksum(b), want)
+
+
+_P = 65521
+# the packed weights of csrc/swap_kernels.cu: one byte of each word per
+# dp4a lane, low byte first
+_ONES = 0x01010101
+_LOCAL_WEIGHTS = (0x04030201, 0x08070605, 0x0C0B0A09, 0x100F0E0D)
+
+
+def _dp4a(a, b, c):
+    """Unsigned __dp4a: the products of the four byte pairs of a and b,
+    plus c (a: uint64 array of 32-bit words, b: a constant word)."""
+    out = c
+    for k in range(4):
+        out = out + ((a >> (8 * k)) & 0xFF) * ((b >> (8 * k)) & 0xFF)
+    return out
+
+
+_UNROLL = 4       # kFletcherUnroll: 16-byte vectors per lane between folds
+
+
+def _fletcher_threads(elems):
+    """Threads per row of fletcher_rows_kernel: a warp per 32 * 16 *
+    _UNROLL bytes, 1 to 8 warps."""
+    return 32 * min(8, max(1, -(-elems // (512 * _UNROLL))))
+
+
+def _fletcher_kernel_model(row, addr_mod16):
+    """A numpy model of fletcher_rows_kernel's regrouping for one row that
+    starts ``addr_mod16`` bytes past a 16-byte boundary: a byte head up to
+    the boundary, 16-byte vectors whose byte sum s1v and local weighted
+    sum Lv come from dp4a with the kernel's packed weights, s2 += base *
+    s1v + Lv with base = the vector's offset stepped mod p, a byte tail
+    (each byte folded mod p), each lane folding its vector sums mod p once
+    per _UNROLL vectors, then the warp sums and the block's sum. Every
+    partial is checked to fit in uint32."""
+    def u32(x):
+        assert (np.asarray(x) < 2**32).all()
+        return x
+
+    n, nthr = len(row), _fletcher_threads(len(row))
+    head = min(n, (16 - addr_mod16) % 16)
+    nvec = (n - head) // 16
+    s1 = np.zeros(nthr, np.uint64)
+    s2 = np.zeros(nthr, np.uint64)
+    for lo, hi in ((0, head), (head + 16 * nvec, n)):
+        for i in range(lo, hi):
+            lane, v = (i - lo) % nthr, np.uint64(row[i])
+            s1[lane] = u32(s1[lane] + v) % _P
+            s2[lane] = u32(s2[lane] + ((i + 1) % _P) * v) % _P
+    words = np.frombuffer(row[head:head + 16 * nvec].tobytes(), "<u4")
+    words = words.reshape(nvec, 4).astype(np.uint64)
+    s1v = np.zeros(nvec, np.uint64)
+    lv = np.zeros(nvec, np.uint64)
+    for k in (3, 2, 1, 0):              # innermost dp4a first, as the kernel
+        s1v = _dp4a(words[:, k], _ONES, s1v)
+        lv = _dp4a(words[:, k], _LOCAL_WEIGHTS[k], lv)
+    lanes = np.arange(nthr, dtype=np.uint64)
+    base = (head + 16 * lanes) % _P
+    for r0 in range(0, -(-nvec // nthr), _UNROLL):   # a lane's batch, one fold
+        t1 = np.zeros(nthr, np.uint64)
+        t2 = np.zeros(nthr, np.uint64)
+        for r in range(r0, r0 + _UNROLL):
+            v = r * nthr + np.arange(nthr)
+            ok = v < nvec
+            a = np.where(ok, s1v[np.minimum(v, nvec - 1)], 0).astype(np.uint64)
+            b = np.where(ok, lv[np.minimum(v, nvec - 1)], 0).astype(np.uint64)
+            t1 = u32(t1 + a)
+            t2 = u32(t2 + u32(base * a + b))
+            base = base + 16 * nthr
+            base = np.where(base >= _P, base - _P, base)
+        s1 = u32(s1 + t1) % _P
+        s2 = u32(s2 + t2) % _P
+    w1 = u32(s1.reshape(-1, 32).sum(axis=1))       # shuffle sums per warp
+    w2 = u32(s2.reshape(-1, 32).sum(axis=1))
+    if nthr > 32:
+        w1, w2 = w1 % _P, w2 % _P
+    t1, t2 = int(u32(w1.sum())), int(u32(w2.sum()))
+    return (t1 % _P) | ((t2 % _P) << 16)
+
+
+@pytest.mark.parametrize("addr_mod16", [0, 4, 13])
+@pytest.mark.parametrize("elems", [1, 15, 4096, 4097, 70001, 2 ** 21])
+def test_fletcher_kernel_regrouping_matches_reference(elems, addr_mod16):
+    """The CUDA kernel's arithmetic (16-byte vectors, dp4a weights 1..16,
+    base * s1v, uint32 folds) equals the reference for rows of every
+    length class, each alignment and a 2 MiB row (the fold before
+    overflow)."""
+    row = _rng(elems, addr_mod16).integers(0, 256, elems).astype(np.uint8)
+    row[:elems // 7] = 255                # long runs of the largest byte
+    want = int(np.asarray(jref.fletcher_checksum(jnp.asarray(row[None])))[0])
+    assert _fletcher_kernel_model(row, addr_mod16) == want
 
 
 @pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
@@ -200,7 +301,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,elems", [(64, 4096), (16, 4096), (16, 4100),
-                                     (3, 70001)])
+                                     (3, 70001), (4, 1), (5, 15), (3, 4097),
+                                     (1, 2 ** 21)])
 def test_cuda_kernels_equal_plain(cuda_device, n, elems):
     x = torch.from_numpy(
         _rng(n, elems).integers(0, 256, (n, elems)).astype(np.uint8))
@@ -216,4 +318,5 @@ def test_cuda_kernels_equal_plain(cuda_device, n, elems):
     pool = xd.clone()
     ops.scatter_rows_(pool, idx, xd)
     assert torch.equal(pool.cpu(), x.flip(0))
-    assert all(ops.launches[k] == before[k] + 1 for k in before)
+    assert all(ops.launches[k] == before[k] + 1
+               for k in ("gather", "scatter", "zero", "fletcher"))

@@ -163,6 +163,70 @@ def test_decode_attention_matches_reference(dtype, jax_ref):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
+def _split_merge_model(q, pool, table, kv_len, chunk=64, stage=16):
+    """A plain-torch model of csrc/paged_attention.cu's work split: each
+    (sequence, KV head) cut into splits of ``chunk`` positions; per split
+    an online softmax over stages of ``stage`` tokens (m, l and acc = e.V
+    rescaled by e^(m_old - m_new) at each stage); a sequence of one split
+    writes acc / l, otherwise the splits merge as
+    sum(acc_s e^(m_s - M)) / max(sum(l_s e^(m_s - M)), 1e-30); kv_len 0
+    gives zeros. f32 throughout, q scaled in f32."""
+    B, H, hd = q.shape
+    _, bt, _, KV, _ = pool.shape
+    g = H // KV
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        n_pos = max(0, min(int(kv_len[b]), table.shape[1] * bt))
+        pos = torch.arange(n_pos)
+        rows = table[b, pos // bt].long() * bt + pos % bt
+        kv = pool.reshape(-1, 2, KV, hd)[rows].float()      # (n_pos, 2, KV, hd)
+        for kh in range(KV):
+            qh = q[b, kh * g:(kh + 1) * g].float() * hd ** -0.5
+            parts = []
+            for p0 in range(0, n_pos, chunk):
+                m = torch.full((g,), -1e30)
+                l, acc = torch.zeros(g), torch.zeros(g, hd)
+                for t0 in range(p0, min(p0 + chunk, n_pos), stage):
+                    k = kv[t0:min(t0 + stage, p0 + chunk, n_pos), 0, kh]
+                    v = kv[t0:min(t0 + stage, p0 + chunk, n_pos), 1, kh]
+                    s = qh @ k.T                              # (g, tokens)
+                    m_new = torch.maximum(m, s.max(dim=1).values)
+                    e = torch.exp(s - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + e.sum(dim=1)
+                    acc = acc * alpha[:, None] + e @ v
+                    m = m_new
+                parts.append((m, l, acc))
+            if len(parts) == 1:
+                m, l, acc = parts[0]
+                o = acc / l[:, None]
+            elif parts:
+                M = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+                w = [torch.exp(m - M) for m, _, _ in parts]
+                l = sum(li * wi for (_, li, _), wi in zip(parts, w))
+                acc = sum(a * wi[:, None] for (_, _, a), wi in zip(parts, w))
+                o = acc / torch.clamp(l, min=1e-30)[:, None]
+            else:
+                continue
+            out[b, kh * g:(kh + 1) * g] = o
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("bt,mbs", [(64, 8), (8, 70)], ids=["bt64", "bt8"])
+def test_split_merge_model_equals_plain(bt, mbs, no_launch):
+    """The kernel's chunking and merge, modelled in plain torch, equal the
+    plain version at lengths 0, 1, 63, 65 and 512 (one split, a split's
+    edge, two splits, eight splits) within the f32 tolerance."""
+    lens = [0, 1, 63, 65, 512]
+    shape = (len(lens), 8, 2, 32, bt, mbs)
+    q, pool, table, kv_len = map(torch.from_numpy, _inputs(
+        *shape, np.float32, seed=11, kv_len=lens))
+    want = ref.paged_decode_attention(q, pool, table, kv_len)
+    got = _split_merge_model(q, pool, table, kv_len)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
 # ------------------------------------------------------------ the wrapper
 def test_table_entries_past_kv_len_are_never_read(no_launch):
     """Entries of blocks at or past ceil(kv_len / bt) may hold anything."""
@@ -239,7 +303,15 @@ def cuda_device():
 CARD_CASES = [(s, dt) for s in SWEEP for dt in (np.float32, np.float16)] + [
     (QWEN3_4B, "bfloat16"), ((8, 32, 8, 128, 64, 32), "bfloat16"),
     ((3, 4, 2, 32, 8, 20), np.float32),
-    ((2, 8, 2, 32, 8, 4), "f32_over_bf16"), ((2, 48, 1, 128, 64, 2), "bfloat16")]
+    ((2, 8, 2, 32, 8, 4), "f32_over_bf16"), ((2, 48, 1, 128, 64, 2), "bfloat16"),
+    ((6, 32, 8, 128, 64, 8), "bfloat16"), ((5, 8, 2, 64, 8, 40), np.float32),
+    ((4, 14, 2, 64, 16, 12), np.float16)]
+# lengths of the cases above that pin them (the others draw theirs): each
+# ends partway through a 16-token stage of the kernel's ring and partway
+# through a 64-position split, and neighbours differ by more than a split
+CARD_LENGTHS = {(6, 32, 8, 128, 64, 8): [0, 17, 100, 200, 501, 1],
+                (5, 8, 2, 64, 8, 40): [0, 40, 130, 1, 319],
+                (4, 14, 2, 64, 16, 12): [0, 191, 7, 72]}
 
 
 @pytest.mark.cuda
@@ -253,7 +325,9 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, dtype):
     pool_dt = "bfloat16" if dtype == "f32_over_bf16" else dtype
     q, pool, table, kv_len = _inputs(*shape, pool_dt, seed=8)
     kv_len[0] = 0
-    if B > 2:
+    if shape in CARD_LENGTHS:
+        kv_len[:] = CARD_LENGTHS[shape]
+    elif B > 2:
         kv_len[1], kv_len[2] = 1, bt + 1
     qt = torch.from_numpy(q).to(cuda_device)
     if dtype != "f32_over_bf16":
@@ -269,6 +343,40 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, dtype):
     tol = 2e-5 if qt.dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lens", [
+    ((8, 32, 8, 128, 64, 32), [512, 17, 0, 2048, 65, 1000, 64, 1]),
+    ((3, 16, 1, 32, 8, 20), [160, 0, 77])], ids=["serve", "mqa16"])
+def test_cuda_kernel_repeats_and_graph_replays(cuda_device, shape, lens):
+    """The merge's per-(sequence, KV head) counters go back to 0: the same
+    launch twice in a row, then a CUDA graph of it replayed five times,
+    each equal to the plain version."""
+    dtype = "bfloat16" if shape[3] == 128 else np.float32
+    q, pool, table, kv_len = _inputs(*shape, dtype, seed=12, kv_len=lens)
+    args = [_torch(q, dtype).to(cuda_device), _torch(pool, dtype).to(cuda_device),
+            torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(kv_len).to(cuda_device)]
+    want = ref.paged_decode_attention(*args).float()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for _ in range(2):
+        got = ops.paged_decode_attention(*args)
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    out = torch.empty_like(args[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.launch_paged_attn(*args, out)        # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ops.launch_paged_attn(*args, out)
+    for _ in range(5):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
