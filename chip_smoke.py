@@ -11,17 +11,19 @@ freeing its device memory before the next:
 1. build        -- compile every ``csrc/*.cu`` source with nvcc for
                    sm_90a (one nvcc each, in parallel) and print the
                    card's name and power limit;
-2. kernels      -- hold each of the four swap kernels against its plain
-                   PyTorch version on the card (exact equality) at the
-                   main-path shapes and at ragged shapes, paged decode
+2. kernels      -- hold each swap kernel (the swap-out's compacting
+                   gather, gather, scatter, zero scan, Fletcher) against
+                   its plain PyTorch version on the card (exact equality)
+                   at the main-path shapes and at ragged shapes, paged decode
                    attention within its tolerances at the serve path's
                    shape and the f32/f16 sweep, and the int8 quantize
                    pair bit for bit (tests/test_kernels.py's sweep in
                    f32/f16/bf16, zero, -0.0 and tie MPs, qwen3-4b's KV
                    block); time kernel, plain version and library call,
                    paged attention also at the kv_len of ``ATTN_SWEEP``,
-                   Fletcher and paged attention also L2-cold, and with
-                   ``--compare-sources DIR`` both against the earlier
+                   the swap kernels and paged attention also L2-cold, and
+                   with ``--compare-sources DIR`` the swap-out's chunk
+                   read, Fletcher and paged attention against the earlier
                    sources in DIR, in turns (old, new, new, old);
 3. main         -- Taiji's swap data path at the paper's deployment size
                    (2 MiB MS, 4 KiB MP, ``--managed-ms`` managed MSs of
@@ -94,12 +96,17 @@ ATTN_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 QUANT_SOURCE = "src/repro_torch/csrc/quantize.cu"
 KERNELS = {
     # name: (ops counter, TPU kernel it replaces, source, main path)
+    "gather_nonzero_rows": ("gather", "src/repro/kernels/swap_copy.py:40",
+                            SWAP_SOURCE, "swap path"),
+    # the swap-out reads through gather_nonzero_rows, the gather and the
+    # zero scan folded into it: these two are on no path, so their
+    # launches are their checks' own
     "gather_rows": ("gather", "src/repro/kernels/swap_copy.py:40", SWAP_SOURCE,
-                    "swap path"),
+                    None),
     "scatter_rows_": ("scatter", "src/repro/kernels/swap_copy.py:69", SWAP_SOURCE,
                       "swap path"),
     "zero_rows": ("zero", "src/repro/kernels/zero_detect.py:42", SWAP_SOURCE,
-                  "swap path"),
+                  None),
     "fletcher_rows": ("fletcher", "src/repro/kernels/crc32c.py:60", SWAP_SOURCE,
                       "swap path"),
     "paged_decode_attention": ("paged_attn",
@@ -113,6 +120,11 @@ KERNELS = {
                          QUANT_SOURCE, None),
 }
 SWAP_COUNTERS = ("gather", "scatter", "zero", "fletcher")
+# what each swap phase must launch: the compacting gather (counted as
+# "gather"), Fletcher and, where MSs come back, scatter; and no separate
+# zero scan, which the gather does
+SWAP_OUT_IN = ("gather", "scatter", "fletcher")
+SWAP_OUT = ("gather", "fletcher")
 # the L2-cold timings write this much between launches: more than the
 # H100's 50 MB L2
 FLUSH_BYTES = 256 << 20
@@ -191,6 +203,37 @@ def time_cold_us(torch, fn, flush) -> tuple:
     return both - alone, both, alone
 
 
+def time_events_us(torch, fn, inner: int = 20, outer: int = 7) -> float:
+    """Device time of one ``fn()`` call in microseconds for a function a
+    CUDA graph cannot capture (it waits for the device inside): ``inner``
+    eager calls between two events, median of ``outer``."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(outer):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(inner):
+            fn()
+        t1.record()
+        t1.synchronize()
+        per_call.append(t0.elapsed_time(t1) * 1e3 / inner)
+    per_call.sort()
+    return per_call[len(per_call) // 2]
+
+
+def check_swap_launches(where: str, launches: dict, needed) -> None:
+    """Each of ``needed`` launched, and no separate zero scan."""
+    missing = [k for k in needed if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"{where}: swap kernels not launched: {missing}")
+    if launches.get("zero", 0):
+        fail(f"{where}: {launches['zero']} zero-scan launches; the swap-out's "
+             f"gather does the scan")
+
+
 def bound_us(nbytes: int, nops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple:
     b = nbytes / HBM_BYTES_PER_S * 1e6
     o = nops / ops_per_s * 1e6
@@ -232,9 +275,48 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
     row_shapes = [("main64", 64, 4096), ("main16", 16, 4096),
                   ("ragged", 16, 4100), ("wrap", 3, 70001), ("one", 4, 1),
                   ("fifteen", 5, 15), ("odd", 3, 4097), ("2MiB", 1, 2 ** 21)]
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
-    # gather
-    err = 0.0
+    # the swap-out's compacting gather, bit for bit against gather_blocks +
+    # zero_detect: (label, n_pool, elems, indices, every n-th pool row
+    # zero; 1: all, 0: none) -- the main-path chunk and its edges, ragged
+    # rows, eight 1.125 MiB KV rows, a whole MS, more than one launch takes
+    compact_shapes = [("main64", 512, 4096, 64, 3), ("all_zero", 512, 4096, 64, 1),
+                      ("none_zero", 512, 4096, 64, 0), ("one", 512, 4096, 1, 2),
+                      ("main13", 512, 4096, 13, 3), ("ragged", 37, 4100, 11, 2),
+                      ("kv_rows", 8, 1_179_648, 8, 2), ("whole_ms", 512, 4096, 512, 3),
+                      ("split", 1024, 4096, 700, 2)]
+    for label, n_pool, elems, k, zero_every in compact_shapes:
+        pool, idx = rows(n_pool, elems, zero_every=zero_every), perm(n_pool, k)
+        if zero_every > 1:               # a row zero but for its last byte
+            pool[int(idx[0])] = 0
+            pool[int(idx[0]), -1] = 1
+        zero, got = ops.gather_nonzero_rows(pool, idx)
+        want_zero, want = ref.gather_nonzero_blocks(pool, torch.from_numpy(idx).to(dev))
+        torch.cuda.synchronize()
+        if not (torch.equal(zero, want_zero.cpu()) and torch.equal(got, want)):
+            fail(f"gather_nonzero_rows != plain at {label} {(n_pool, elems, k)}")
+    pool, idx = rows(512, 4096, zero_every=3), perm(512, 64)
+    idx_dev = torch.from_numpy(idx).to(dev)
+    meta = torch.empty(4 + 64, dtype=torch.uint8, device=dev)
+    out = torch.empty((64, 4096), dtype=torch.uint8, device=dev)
+    live = int((~ref.gather_nonzero_blocks(pool, idx_dev)[0]).sum())
+    results["gather_nonzero_rows"] = dict(
+        shape=f"pool (512, 4096) uint8 (every third row zero), 64 indices, "
+              f"{live} non-zero", max_abs_err=0.0, compact_cases=[
+                  c[0] for c in compact_shapes],
+        kernel_us=time_us(torch, lambda: ops.launch_gather_nonzero(
+            pool, idx, meta, out)),
+        cold=time_cold_us(torch, lambda: ops.launch_gather_nonzero(
+            pool, idx, meta, out), flush),
+        plain_us=time_events_us(torch, lambda: ref.gather_nonzero_blocks(
+            pool, idx_dev)),
+        library_us=None,
+        # the rows read, the non-zero rows, the flags and the count written
+        bound=bound_us(64 * 4096 + live * 4096 + 64 + 4, 64 * 4096))
+
+    # gather (the launches of its check: the main path does not call it)
+    err, n0 = 0.0, ops.launches["gather"]
     for label, n_pool, elems, k in copy_shapes:
         pool, idx = rows(n_pool, elems), perm(n_pool, k)
         got = ops.gather_rows(pool, idx)
@@ -243,15 +325,17 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
         if not torch.equal(got, want):
             fail(f"gather_rows != plain at {label} {(n_pool, elems, k)}")
         err = max(err, max_err(got, want))
+    n_gather = ops.launches["gather"] - n0
     pool, idx = rows(512, 4096), perm(512, 64)
     idx_dev = torch.from_numpy(idx).to(dev)
-    out = torch.empty((64, 4096), dtype=torch.uint8, device=dev)
     results["gather_rows"] = dict(
         shape="pool (512, 4096) uint8, 64 indices", max_abs_err=err,
-        kernel_us=time_us(torch, lambda: ops.launch_gather(pool, idx_dev, out)),
+        launches=n_gather,
+        kernel_us=time_us(torch, lambda: ops.launch_gather(pool, idx, out)),
+        cold=time_cold_us(torch, lambda: ops.launch_gather(pool, idx, out), flush),
         plain_us=time_us(torch, lambda: ref.gather_blocks(pool, idx_dev)),
         library_us=time_us(torch, lambda: torch.index_select(pool, 0, idx_dev)),
-        bound=bound_us(2 * 64 * 4096 + 8 * 64, 0))
+        bound=bound_us(2 * 64 * 4096, 0))
 
     # scatter (in place: untouched rows must keep their bytes)
     err = 0.0
@@ -273,8 +357,9 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
         library_us=time_us(torch, lambda: pool.index_copy_(0, idx_dev, blocks)),
         bound=bound_us(2 * 64 * 4096 + 8 * 64, 0))
 
-    # zero scan: every third row zero, plus rows zero but for their last byte
-    err = 0.0
+    # zero scan: every third row zero, plus rows zero but for their last
+    # byte (the launches of its check: the main path does not call it)
+    err, n0 = 0.0, ops.launches["zero"]
     for label, n, elems in row_shapes:
         x = rows(n, elems, zero_every=3)
         if n > 1:
@@ -285,11 +370,13 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
         if not torch.equal(got, want):
             fail(f"zero_rows != plain at {label} {(n, elems)}")
         err = max(err, max_err(got, want))
+    n_zero = ops.launches["zero"] - n0
     x = rows(64, 4096, zero_every=3)
     zout = torch.empty(64, dtype=torch.bool, device=dev)
     results["zero_rows"] = dict(
-        shape="(64, 4096) uint8", max_abs_err=err,
+        shape="(64, 4096) uint8", max_abs_err=err, launches=n_zero,
         kernel_us=time_us(torch, lambda: ops.launch_zero(x, zout)),
+        cold=time_cold_us(torch, lambda: ops.launch_zero(x, zout), flush),
         plain_us=time_us(torch, lambda: ref.zero_detect(x)),
         library_us=time_us(torch, lambda: x.any(dim=1)),
         bound=bound_us(64 * 4096 + 64, 64 * 4096))
@@ -305,7 +392,6 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
         err = max(err, float(abs(got.astype("int64") - want.astype("int64")).max()))
     x = rows(64, 4096)
     fout = torch.empty(64, dtype=torch.uint32, device=dev)
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     cold = time_cold_us(torch, lambda: ops.launch_fletcher(x, fout), flush)
     del flush
     results["fletcher_rows"] = dict(
@@ -325,6 +411,11 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
         if "cold" in r:
             line.update(l2_cold_us=r["cold"][0], flush_plus_kernel_us=r["cold"][1],
                         flush_us=r["cold"][2])
+        if "launches" in r:
+            line["launches_in_this_check"] = r["launches"]
+        if "compact_cases" in r:
+            line.update(cases=r["compact_cases"],
+                        plain_timing="eager, CUDA events (it waits for the card)")
         log(json.dumps(line))
     return results
 
@@ -440,20 +531,50 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
 
 
 def compare_old_new(torch, ops, lib_old, seed: int) -> dict:
-    """Fletcher at (64, 4096) and paged attention at the serve shape
-    (kv_len 512), L2-warm, each timed in turns -- old, new, new, old --
-    against ``lib_old``, a library built from earlier sources of
-    ``csrc/swap_kernels.cu`` and ``csrc/paged_attention.cu`` with the
-    same entry points. Both versions must agree first."""
+    """The swap-out's chunk read at the main-path shape, Fletcher at (64,
+    4096) and paged attention at the serve shape (kv_len 512), L2-warm,
+    each timed in turns -- old, new, new, old -- against ``lib_old``, a
+    library built from earlier sources of ``csrc/swap_kernels.cu`` and
+    ``csrc/paged_attention.cu``. The earlier chunk read is its device
+    work: gather, zero scan, gather of the non-zero rows (indices on the
+    device already; that path also uploaded them and waited twice); the
+    new one is one compacting gather. Both versions must agree first."""
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(seed + 11)
     x = torch.randint(0, 256, (64, 4096), generator=g, dtype=torch.uint8).to(dev)
     f_new = torch.empty(64, dtype=torch.uint32, device=dev)
     f_old = torch.empty_like(f_new)
 
+    def stream():          # the capturing stream, inside a CUDA graph
+        return torch.cuda.current_stream().cuda_stream
+
     def fletcher_old():
         return lib_old.swap_fletcher_rows(x.data_ptr(), f_old.data_ptr(), 64,
-                                          4096, torch.cuda.current_stream().cuda_stream)
+                                          4096, stream())
+
+    frame = torch.randint(0, 256, (512, 4096), generator=g, dtype=torch.uint8)
+    frame[::3] = 0
+    frame = frame.to(dev)
+    idx = torch.randperm(512, generator=g)[:64].numpy()
+    idx_dev = torch.from_numpy(idx).to(dev)
+    data = torch.empty((64, 4096), dtype=torch.uint8, device=dev)
+    z_old = torch.empty(64, dtype=torch.bool, device=dev)
+    need = (frame.cpu()[torch.from_numpy(idx)] != 0).any(dim=1).nonzero()[:, 0].to(dev)
+    rows_old = torch.empty((len(need), 4096), dtype=torch.uint8, device=dev)
+    meta = torch.empty(4 + 64, dtype=torch.uint8, device=dev)
+    rows_new = torch.empty((64, 4096), dtype=torch.uint8, device=dev)
+
+    def chunk_old():
+        return (lib_old.swap_gather_rows(frame.data_ptr(), idx_dev.data_ptr(),
+                                         data.data_ptr(), 64, 4096, stream())
+                or lib_old.swap_zero_rows(data.data_ptr(), z_old.data_ptr(), 64,
+                                          4096, stream())
+                or lib_old.swap_gather_rows(data.data_ptr(), need.data_ptr(),
+                                            rows_old.data_ptr(), len(need), 4096,
+                                            stream()))
+
+    def chunk_new():
+        ops.launch_gather_nonzero(frame, idx, meta, rows_new)
 
     B, H, KV, hd, bt, mbs = SERVE_BATCH, 32, 8, 128, 64, SERVE_MAX_SEQ // 64
     q = torch.randn((B, H, hd), generator=g).bfloat16().to(dev)
@@ -468,20 +589,26 @@ def compare_old_new(torch, ops, lib_old, seed: int) -> dict:
         return lib_old.paged_attn_decode(
             q.data_ptr(), pool.data_ptr(), table.data_ptr(), kv_len.data_ptr(),
             a_old.data_ptr(), ws.data_ptr(), B, H, KV, hd, bt, mbs, B * mbs,
-            n_split, 2, 2, hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+            n_split, 2, 2, hd ** -0.5, stream())
 
-    if fletcher_old() or attn_old():
+    if fletcher_old() or attn_old() or chunk_old():
         fail("old-vs-new: a launch of the earlier sources failed")
     ops.launch_fletcher(x, f_new)
     ops.launch_paged_attn(q, pool, table, kv_len, a_new)
+    chunk_new()
     torch.cuda.synchronize()
     if not torch.equal(f_old, f_new):
         fail("old-vs-new: the two Fletcher kernels disagree")
+    count = int(meta[:4].cpu().view(torch.int32))
+    if not (count == len(need) and torch.equal(rows_new[:count], rows_old)
+            and torch.equal(meta[4:].view(torch.bool), z_old)):
+        fail("old-vs-new: the chunk reads disagree")
     attn_diff = float((a_old.float() - a_new.float()).abs().max())
     if not attn_diff <= ATTN_TOL["bfloat16"]:
         fail(f"old-vs-new: the two paged kernels differ by {attn_diff}")
     out = {}
     for name, old, new in (
+            ("swap_out_chunk_read", chunk_old, chunk_new),
             ("fletcher_rows", fletcher_old, lambda: ops.launch_fletcher(x, f_new)),
             ("paged_decode_attention", attn_old,
              lambda: ops.launch_paged_attn(q, pool, table, kv_len, a_new))):
@@ -491,6 +618,9 @@ def compare_old_new(torch, ops, lib_old, seed: int) -> dict:
                      "old_us": sum(t for w, t in times if w == "old") / 2,
                      "new_us": sum(t for w, t in times if w == "new") / 2}
     out["paged_decode_attention"]["max_abs_diff"] = attn_diff
+    out["swap_out_chunk_read"].update(
+        old="gather_rows + zero_rows + gather_rows (non-zero rows)",
+        new="gather_nonzero_rows", non_zero_rows=count)
     log(json.dumps({"old_vs_new": out}))
     free_device(torch)
     return out
@@ -525,9 +655,13 @@ def load_old_build(proc, path: Path):
     if proc.returncode:
         fail(f"--compare-sources: nvcc failed ({proc.returncode}):\n{text}")
     lib = ctypes.CDLL(str(path))
-    for name in ("swap_fletcher_rows", "paged_attn_decode"):
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    # the earlier gather and zero scan, gone from this checkout's sources
+    earlier = {"swap_gather_rows": (vp, vp, vp, i64, i64, vp),
+               "swap_zero_rows": (vp, vp, i64, i64, vp)}
+    for name in ("swap_fletcher_rows", "paged_attn_decode", *earlier):
         fn = getattr(lib, name)
-        fn.argtypes = list(_build._SIGNATURES[name])
+        fn.argtypes = list(earlier.get(name) or _build._SIGNATURES[name])
         fn.restype = ctypes.c_int
     log(f"build: earlier sources into {path.name} (waited "
         f"{time.perf_counter() - t0:.1f} s more)")
@@ -849,9 +983,7 @@ def main_path(torch, np, core, ops, managed: int, seed: int):
         f"{phases['verify_s']:.1f} s ({resident_ms} fully resident)")
     if counters["crc_failures"]:
         fail(f"{counters['crc_failures']} CRC failures on the main path")
-    missing = [k for k in SWAP_COUNTERS if launches.get(k, 0) <= 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+    check_swap_launches("main", launches, SWAP_OUT_IN)
     log(json.dumps({"main_path": {
         "frames_gib": frames_gib, "managed_ms": managed,
         "reserve_ms": reserve, "live_ms": len(want), **phases,
@@ -1214,9 +1346,7 @@ def hot_switch_phase(torch, np, core, ops, managed: int, seed: int, smi: str):
                launches=launches, entry_version=entry.call("version"))
     if m.crc_failures:
         fail(f"hot-switch: {m.crc_failures} CRC failures")
-    missing = [k for k in SWAP_COUNTERS if launches.get(k, 0) <= 0]
-    if missing:
-        fail(f"hot-switch: swap kernels not launched: {missing}")
+    check_swap_launches("hot-switch", launches, SWAP_OUT_IN)
     log(f"hot-switch: verified {len(expect)} MSs byte-exact in "
         f"{out['verify_s']:.1f} s ({resident} resident on the device, "
         f"{sampled} read through the guest: fault p50 {fl['p50_us']:.2f} us "
@@ -1419,9 +1549,7 @@ def elastic_kv(torch, ops, seed: int) -> dict:
     if stats["verified_blocks"] != res["total_blocks"]:
         fail(f"elastic-kv: read back {stats['verified_blocks']} of "
              f"{res['total_blocks']} blocks")
-    missing = [k for k in ("gather", "zero", "fletcher") if launches[k] <= 0]
-    if missing:
-        fail(f"elastic-kv: swap kernels not launched: {missing}")
+    check_swap_launches("elastic-kv", launches, SWAP_OUT)
     out = {"seconds": dt, "residency": res,
            "verified_blocks": stats["verified_blocks"],
            "launches": launches, **{k: m[k] for k in (
@@ -1457,9 +1585,7 @@ def elastic_serving(torch, ops, seed: int) -> dict:
         fail("elastic-serving: no MS was swapped out")
     if m["crc_failures"]:
         fail(f"elastic-serving: {m['crc_failures']} CRC failures")
-    missing = [k for k in ("gather", "zero", "fletcher") if launches[k] <= 0]
-    if missing:
-        fail(f"elastic-serving: swap kernels not launched: {missing}")
+    check_swap_launches("elastic-serving", launches, SWAP_OUT)
     out = {"seconds": dt, "module_version": stats["entry_version"],
            "upgrade_turn": stats["upgrade_turn"], "residency": stats["residency"],
            "launches": launches, **{k: m[k] for k in (
@@ -1479,8 +1605,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-sources", type=Path, default=None,
                     help="a directory with earlier swap_kernels.cu and "
-                         "paged_attention.cu: time Fletcher and paged "
-                         "attention against them, in turns")
+                         "paged_attention.cu: time the swap-out's chunk "
+                         "read, Fletcher and paged attention against them, "
+                         "in turns")
     args = ap.parse_args()
 
     import numpy as np
@@ -1547,7 +1674,7 @@ def main() -> int:
             "bound_ms": r["bound"][0] / 1e3, "bound_by": r["bound"][1],
             "library_ms": (None if r["library_us"] is None
                            else r["library_us"] / 1e3),
-            "main_path": path or "none: launches are the quantize check's own"})
+            "main_path": path or "none: launches are its check's own"})
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -44,10 +44,11 @@ subcode -- ``("z", blob)`` zlib-compressed, ``("v", raw)`` verbatim
 old ``len(blob) < len(out)`` sniffing, which silently double-decoded a
 verbatim page whose bytes happened to look short.
 
-Port: the batched entry points take rows on the frames' device. The zero
-scan and the per-row Fletcher extent tags run there (``ops.zero_rows``,
-``ops.fletcher_rows``); only the non-zero rows are gathered and copied
-to the host -- once per batch -- for ``zlib.crc32``/``zlib.compress``.
+Port: the batched entry points take rows on the frames' device.
+:meth:`store_batch` reads its rows there once (``ops.gather_nonzero_rows``
+flags the zero rows and compacts the non-zero ones) and tags the non-zero
+rows (``ops.fletcher_rows``); only those rows and tags are copied to the
+host -- once per batch -- for ``zlib.crc32``/``zlib.compress``.
 Loads decode into a host staging array, verify the CRCs there, then copy
 the rows to the device once and scatter them into ``out`` in place
 (``ops.scatter_rows_``); the extent tags are re-checked on the device.
@@ -690,31 +691,37 @@ class BackendStore:
             return len(self._remote)
 
     # ================================================== batched data path ==
-    def store_batch(self, gfn: int, mps: np.ndarray, data: torch.Tensor
+    def store_batch(self, gfn: int, mps: np.ndarray, data: torch.Tensor,
+                    rows: Optional[np.ndarray] = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Store ``data[i]`` (uint8 rows on the frames' device) as MP
-        ``mps[i]`` of ``gfn``.
+        """Store row ``rows[i]`` of ``data`` (uint8 rows on the frames'
+        device; ``rows`` defaults to ``arange(len(mps))``) as MP ``mps[i]``
+        of ``gfn``.
 
         Returns ``(kinds, crcs)`` aligned with ``mps``. Observationally
         identical to ``store`` called per row: same kind selection, same
         zlib CRCs, same round-trip bytes. The on-backend representation
         may differ -- without a disk tier, non-zero rows are stored as one
-        joint extent rather than per-row blobs. One device zero scan
-        covers the whole batch; zero rows reuse the constant zero-page
-        CRC instead of recomputing it, and never leave the device: the
-        rows that need host bytes (CRCs, compression) are gathered on the
-        device and copied to the host in one transfer.
+        joint extent rather than per-row blobs. One device pass
+        (``ops.gather_nonzero_rows``) reads the batch's rows once, flags
+        the zero ones and compacts the non-zero ones; only those cross to
+        the host, with their Fletcher tags, in one more transfer. Zero
+        rows reuse the constant zero-page CRC and tag, and their bytes
+        never leave the device.
         """
         bk = self.cfg.backend
         k = len(mps)
-        assert tuple(data.shape) == (k, self.cfg.mp_bytes)
+        n = self.cfg.mp_bytes
+        rows = np.arange(k) if rows is None else np.asarray(rows)
+        assert len(rows) == k and data.shape[1:] == (n,)
         kinds = np.full(k, K_NONE, dtype=np.uint8)
         crcs = np.zeros(k, dtype=np.uint32)
         tr = self._tr
 
         if tr is not None:
             t_k = _perf_ns()
-        zero = ops.zero_rows(data).cpu().numpy()
+        zero_t, nz_dev = ops.gather_nonzero_rows(data, rows)
+        zero = zero_t.numpy()
         if tr is not None:
             tr.push(ST_KERNEL_STORE, t_k, _perf_ns() - t_k)
 
@@ -736,28 +743,39 @@ class BackendStore:
         # incompressible row spills to disk, not into a resident extent)
         use_extent = bk.compression_enabled and self._disk_file is None
         # host bytes are needed for the non-zero rows' CRCs and for every
-        # row that is compressed or stored; with extents the device also
-        # tags every row of the batch (launched before the host copy)
+        # row that is compressed or stored, the zero ones written on the
+        # host; with extents the device also tags the non-zero rows (a zero
+        # row's tag is 0). Rows and tags come over in one transfer
         nz = np.flatnonzero(~zero) if bk.crc_enabled else rest[:0]
-        need = np.union1d(nz, rest)
-        if tr is not None:
-            t_k = _perf_ns()
-        tags_dev = (ops.fletcher_rows(data) if len(rest) and use_extent
-                    else None)
-        host = (ops.gather_rows(data, need).cpu().numpy() if len(need)
-                else None)
-        row_tags = tags_dev.cpu().numpy() if tags_dev is not None else None
-        if tr is not None:
-            tr.push(ST_KERNEL_STORE, t_k, _perf_ns() - t_k)
-        pos = np.zeros(k, dtype=np.int64)       # batch row -> host row
-        pos[need] = np.arange(len(need))
+        host, tags = np.empty((0, n), np.uint8), []
+        if len(nz_dev):
+            if tr is not None:
+                t_k = _perf_ns()
+            tags = ([ops.fletcher_rows(nz_dev)] if len(rest) and use_extent
+                    else [])
+            host, *tags = (t.numpy() for t in ops.copy_to_host(nz_dev, *tags))
+            if tr is not None:
+                tr.push(ST_KERNEL_STORE, t_k, _perf_ns() - t_k)
+        rank = np.cumsum(~zero) - 1      # batch row -> row of ``host``
+        row_tags = np.zeros(k, dtype=np.uint32)
+        if tags:
+            row_tags[~zero] = tags[0]
+
+        def host_rows(sub: np.ndarray) -> np.ndarray:
+            """The bytes of batch rows ``sub``; zero rows written here."""
+            live = ~zero[sub]
+            if live.all():
+                return host[rank[sub]]
+            out = np.zeros((len(sub), n), dtype=np.uint8)
+            out[live] = host[rank[sub[live]]]
+            return out
 
         if bk.crc_enabled:
             # an all-zero row's CRC is the constant zero-page CRC, so only
             # non-zero rows pay a crc32 pass
             crcs[:] = self.zero_crc
             if len(nz):
-                crcs[nz] = [zlib.crc32(host[p]) for p in pos[nz].tolist()]
+                crcs[nz] = [zlib.crc32(host[p]) for p in rank[nz].tolist()]
 
         # compress the remainder as extents: one zlib stream over a run of
         # concatenated rows amortizes the per-call setup that dominates
@@ -775,7 +793,7 @@ class BackendStore:
             # the stored bytes are identical for any worker count
             chunks = [rest[lo:lo + max_rows]
                       for lo in range(0, len(rest), max_rows)]
-            raw_cats = [host[pos[sub]].tobytes() for sub in chunks]
+            raw_cats = [host_rows(sub).tobytes() for sub in chunks]
             level = bk.compression_level
             pool = self._compress_pool() if len(chunks) > 1 else None
             # one swap_compress span covers the whole fan-out's wall time
@@ -814,9 +832,9 @@ class BackendStore:
                     else rest[:0])
         if tr is not None and len(rest):
             t_z = _perf_ns()
-        for i in rest:
+        for i, raw_row in zip(rest, host_rows(rest)):
             # per-row fallback: same tier order as the scalar store()
-            raw = host[pos[i]].tobytes()
+            raw = raw_row.tobytes()
             blob = None
             if bk.compression_enabled:
                 z = zlib.compress(raw, bk.compression_level)

@@ -19,9 +19,10 @@ Watermark integration: the background reclaim round runs at BACK priority
 under hv_sched; the min watermark triggers synchronous proactive swap-out
 on the fault/allocation path (§4.2.2 end).
 
-Port: MS frames are device tensors. Swap-out gathers a chunk's rows on
-the device (``ops.gather_rows``) and hands them to
-``BackendStore.store_batch``; swap-in decodes on the host, copies the
+Port: MS frames are device tensors. Swap-out hands the frame and a
+chunk's MP indices to ``BackendStore.store_batch``, which reads them
+once on the device and copies only the non-zero rows to the host;
+swap-in decodes on the host, copies the
 rows to the device once and scatters them into the frame in place
 (``ops.scatter_rows_``) -- no whole-frame copy. Zero-page faults are an
 asynchronous device memset. All of it runs on the device's current
@@ -44,8 +45,8 @@ from .lru import MultiLevelLRU
 from ..obs.tracer import (ST_BACKEND_LOAD, ST_BACKEND_STORE, ST_FAULT_ALLOC,
                           ST_FAULT_BACKEND, ST_FAULT_COPY, ST_FAULT_DESC,
                           ST_FAULT_MUTEX, ST_FAULT_READAHEAD, ST_FAULT_TOTAL,
-                          ST_READAHEAD_DECODE, ST_SWAP_GATHER, ST_SWAP_IN,
-                          ST_SWAP_OUT, ST_SWAP_SCATTER)
+                          ST_READAHEAD_DECODE, ST_SWAP_IN, ST_SWAP_OUT,
+                          ST_SWAP_SCATTER)
 from .metrics import (FK_COMPRESSED, FK_FAST, FK_OTHER, FK_READAHEAD,
                       FK_ZERO, Metrics)
 from .ms import (H_PFN, H_PRESENT, H_STATE, K_COMPRESSED, K_FREE,
@@ -659,9 +660,9 @@ class SwapEngine:
 
         Each chunk runs the scalar path's exact state transitions, but on
         a whole index vector at once: one bitmap scatter marks the chunk
-        non-present + IO-latched, one gather copies it, one
-        ``store_batch`` call zero-detects/CRCs/compresses it, and one
-        scatter publishes the kinds/CRCs. Cancellation (Fig 8 (2.2)) is
+        non-present + IO-latched, one ``store_batch`` call reads it from
+        the frame and zero-detects/CRCs/compresses it, and one scatter
+        publishes the kinds/CRCs. Cancellation (Fig 8 (2.2)) is
         honoured between chunks, so ``cfg.swap.batch_mps`` bounds a
         racing reader's wait.
         """
@@ -695,13 +696,11 @@ class SwapEngine:
                 pfn_now = rec.pfn
 
             if tr is not None:
-                t_g = _perf_ns()
-            # device copy of the chunk's rows (5)
-            data = ops.gather_rows(self.virt.phys.ms_rows(pfn_now), idxs)
-            if tr is not None:
                 t_st = _perf_ns()
-                tr.push(ST_SWAP_GATHER, t_g, t_st - t_g)
-            kinds, crcs = self.backend.store_batch(gfn, idxs, data)
+            # the chunk's rows, read from the frame on the device (5): on
+            # the stream of every guest write, after the latch above
+            kinds, crcs = self.backend.store_batch(
+                gfn, idxs, self.virt.phys.ms_rows(pfn_now), rows=idxs)
             if tr is not None:
                 tr.push(ST_BACKEND_STORE, t_st, _perf_ns() - t_st)
 

@@ -7,9 +7,11 @@ and the wrappers that pick between them.
               reference's oracles in repro/kernels/ref.py
   _build   -- nvcc build + ctypes load of csrc/*.cu
 
-  gather_rows    -- swap-out copy   (repro/kernels/swap_copy.py:gather_blocks)
-  scatter_rows_  -- swap-in copy    (repro/kernels/swap_copy.py:scatter_blocks)
+  gather_rows    -- row gather      (repro/kernels/swap_copy.py:gather_blocks)
   zero_rows      -- zero-page scan  (repro/kernels/zero_detect.py:zero_detect)
+  gather_nonzero_rows -- the swap-out's chunk read: both of the above in
+                 one pass that hands back only the non-zero rows
+  scatter_rows_  -- swap-in copy    (repro/kernels/swap_copy.py:scatter_blocks)
   fletcher_rows  -- extent-row tags (repro/kernels/crc32c.py:fletcher_checksum)
   paged_decode_attention -- decode attention through the block table
                  (repro/kernels/paged_attention.py:paged_decode_attention)

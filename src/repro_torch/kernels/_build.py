@@ -38,9 +38,10 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "swap_gather_rows": (_VP, _VP, _VP, _I64, _I64, _VP),
+    # mode, pool, host int32 indices (or NULL), n, elems, out, zero flags,
+    # count, stream
+    "swap_gather_pass": (_I32, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _VP),
     "swap_scatter_rows": (_VP, _VP, _VP, _I64, _I64, _VP),
-    "swap_zero_rows": (_VP, _VP, _I64, _I64, _VP),
     "swap_fletcher_rows": (_VP, _VP, _I64, _I64, _VP),
     # q, pool, block_table, kv_len, out, workspace, B, H, KV, hd, bt, mbs,
     # n_blocks, n_split, q dtype, pool dtype, scale, stream

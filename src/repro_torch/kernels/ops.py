@@ -13,10 +13,12 @@ on where its tensors live:
   nothing.
 
 Index vectors of the swap kernels come from the host bitmaps (numpy);
-the wrappers check them against the pool on the host and copy them to
-the device once per call. Paged attention takes its block table and
-lengths on the device and never synchronises: the kernel itself traps
-on a table entry out of range.
+the wrappers check them against the pool on the host. The indexed pass
+(gather, zero scan, and the swap-out's compacting gather) takes them by
+value in its launch parameters; scatter copies them to the device once
+per call. Paged attention takes its block table and lengths on the
+device and never synchronises: the kernel itself traps on a table entry
+out of range.
 """
 from __future__ import annotations
 
@@ -101,7 +103,42 @@ def _dev_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(idx)).to(device)
 
 
-# ------------------------------------------------------------------ kernels
+def copy_to_host(*tensors: torch.Tensor):
+    """CPU copies of ``tensors`` after one wait: device tensors go through
+    pinned buffers of their own (non-blocking copies, then one sync of the
+    current stream); CPU tensors come back as they are."""
+    if not tensors or all(t.device.type == "cpu" for t in tensors):
+        return list(tensors)
+    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for o, t in zip(out, tensors):
+        o.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return out
+
+
+# ------------------------------------------------------------ indexed pass
+# modes of swap_gather_pass in csrc/swap_kernels.cu
+_FULL, _FLAGS, _COMPACT = 0, 1, 2
+
+
+def _launch_pass(name: str, mode: int, pool: torch.Tensor,
+                 idx: "np.ndarray | None", n: int, out=None, zero=None,
+                 count=None) -> None:
+    """One call of the indexed pass on already-checked operands; ``idx``
+    is a host index vector (None: the identity), passed by value."""
+    if pool.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name}: {pool.shape[0]} rows overflow int32 indices")
+    if idx is not None:
+        idx = np.ascontiguousarray(idx, dtype=np.int32)
+    lib = _build.load()
+    with torch.cuda.device(pool.device):
+        rc = lib.swap_gather_pass(
+            mode, pool.data_ptr(), None if idx is None else idx.ctypes.data, n,
+            pool.shape[1], *(None if t is None else t.data_ptr()
+                             for t in (out, zero, count)), _stream(pool))
+    _check_rc(lib, rc, name)
+
+
 def gather_rows(pool: torch.Tensor, idx) -> torch.Tensor:
     """``out[i] = pool[idx[i]]``: (n_pool, elems) rows, host index vector
     -> a new (len(idx), elems) tensor on the pool's device."""
@@ -113,20 +150,50 @@ def gather_rows(pool: torch.Tensor, idx) -> torch.Tensor:
     out = torch.empty((len(idx), pool.shape[1]), dtype=pool.dtype,
                       device=pool.device)
     if len(idx):
-        launch_gather(pool, _dev_index(idx, pool.device), out)
+        launch_gather(pool, idx, out)
     return out
 
 
-def launch_gather(pool: torch.Tensor, idx_dev: torch.Tensor,
+def launch_gather(pool: torch.Tensor, idx: np.ndarray,
                   out: torch.Tensor) -> None:
-    """One gather launch on already-checked device operands (int64
-    indices in range, contiguous uint8 rows)."""
-    lib = _build.load()
-    with torch.cuda.device(pool.device):
-        rc = lib.swap_gather_rows(pool.data_ptr(), idx_dev.data_ptr(),
-                                  out.data_ptr(), out.shape[0], out.shape[1],
-                                  _stream(pool))
-    _check_rc(lib, rc, "gather_rows")
+    """One gather on already-checked operands (host indices in range,
+    contiguous uint8 rows)."""
+    _launch_pass("gather_rows", _FULL, pool, idx, len(idx), out=out)
+    _count("gather")
+
+
+def gather_nonzero_rows(pool: torch.Tensor, idx):
+    """The swap-out's read of a chunk: rows ``pool[idx[i]]``, read once.
+
+    Returns ``(zero, rows)``: ``zero`` a (len(idx),) bool tensor on the
+    host, True where the row is all zero, and ``rows`` the non-zero rows
+    in ascending ``i`` order, (count, elems) on the pool's device. On
+    the card one launch does it (:func:`launch_gather_nonzero`) and one
+    wait brings the flags and the count to the host.
+    """
+    name = "gather_nonzero_rows"
+    _check_rows(name, pool)
+    cuda = _on_cuda(name, pool)
+    idx = _host_index(name, idx, pool.shape[0])
+    if not cuda:
+        return ref.gather_nonzero_blocks(pool, torch.from_numpy(idx))
+    k = len(idx)
+    out = torch.empty((k, pool.shape[1]), dtype=pool.dtype, device=pool.device)
+    if not k:
+        return torch.zeros(0, dtype=torch.bool), out
+    meta = torch.empty(4 + k, dtype=torch.uint8, device=pool.device)
+    launch_gather_nonzero(pool, idx, meta, out)
+    (meta,) = copy_to_host(meta)
+    return meta[4:].view(torch.bool), out[:int(meta[:4].view(torch.int32))]
+
+
+def launch_gather_nonzero(pool: torch.Tensor, idx: np.ndarray,
+                          meta: torch.Tensor, out: torch.Tensor) -> None:
+    """One compacting gather on already-checked operands: ``meta`` is
+    4 + len(idx) bytes, the int32 count then the zero flags; ``out`` has
+    room for every row. Counted as a gather: it does the gather's work."""
+    _launch_pass("gather_nonzero_rows", _COMPACT, pool, idx, len(idx),
+                 out=out, zero=meta[4:], count=meta[:4])
     _count("gather")
 
 
@@ -173,12 +240,7 @@ def zero_rows(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def launch_zero(blocks: torch.Tensor, out: torch.Tensor) -> None:
-    lib = _build.load()
-    with torch.cuda.device(blocks.device):
-        rc = lib.swap_zero_rows(blocks.data_ptr(), out.data_ptr(),
-                                blocks.shape[0], blocks.shape[1],
-                                _stream(blocks))
-    _check_rc(lib, rc, "zero_rows")
+    _launch_pass("zero_rows", _FLAGS, blocks, None, blocks.shape[0], zero=out)
     _count("zero")
 
 
@@ -392,8 +454,10 @@ def launch_dequantize(q: torch.Tensor, scales: torch.Tensor,
     _count("dequantize")
 
 
-__all__ = ["launches", "reset_launches", "gather_rows", "scatter_rows_",
-           "zero_rows", "fletcher_rows", "launch_gather", "launch_scatter",
+__all__ = ["launches", "reset_launches", "copy_to_host", "gather_rows",
+           "gather_nonzero_rows", "scatter_rows_", "zero_rows",
+           "fletcher_rows", "launch_gather", "launch_gather_nonzero",
+           "launch_scatter",
            "launch_zero", "launch_fletcher", "paged_decode_attention",
            "launch_paged_attn", "ATTN_DTYPE_PAIRS", "attn_splits",
            "block_quantize", "launch_quantize", "block_dequantize",

@@ -87,6 +87,16 @@ def gather_blocks(pool: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return pool.index_select(0, indices)
 
 
+def gather_nonzero_blocks(pool: torch.Tensor, indices: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The swap-out's chunk read: :func:`gather_blocks` then
+    :func:`zero_detect` -> ``(zero (k,) bool, the non-zero rows in
+    ascending order)``."""
+    rows = gather_blocks(pool, indices)
+    zero = zero_detect(rows)
+    return zero, rows[~zero]
+
+
 def scatter_blocks_(pool: torch.Tensor, indices: torch.Tensor,
                     blocks: torch.Tensor) -> None:
     """Swap-in copy, in place: ``pool[indices[i]] = blocks[i]``."""
