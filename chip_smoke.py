@@ -12,25 +12,32 @@ freeing its device memory before the next:
                    sm_90a (one nvcc each, in parallel) and print the
                    card's name and power limit;
 2. kernels      -- hold each swap kernel (the swap-out's compacting
-                   gather, gather, scatter, zero scan, Fletcher) against
-                   its plain PyTorch version on the card (exact equality)
-                   at the main-path shapes and at ragged shapes, paged decode
+                   gather, gather, the swap-in's verified scatter and its
+                   plain mode, zero scan, Fletcher) against its plain
+                   PyTorch version on the card (exact equality, the
+                   verified scatter's verdict too) at the main-path
+                   shapes and at ragged shapes, paged decode
                    attention within its tolerances at the serve path's
                    shape and the f32/f16 sweep, and the int8 quantize
                    pair bit for bit (tests/test_kernels.py's sweep in
                    f32/f16/bf16, zero, -0.0 and tie MPs, qwen3-4b's KV
                    block); time kernel, plain version and library call,
                    paged attention also at the kv_len of ``ATTN_SWEEP``,
-                   the swap kernels and paged attention also L2-cold, and
-                   with ``--compare-sources DIR`` the swap-out's chunk
-                   read, Fletcher and paged attention against the earlier
-                   sources in DIR, in turns (old, new, new, old);
+                   the swap kernels, paged attention and quantize also
+                   L2-cold, and with ``--compare-sources DIR`` the
+                   swap-in's chunk write (host clock), Fletcher, paged
+                   attention, quantize and, where DIR's sources have the
+                   separate gather and zero scan, the swap-out's chunk
+                   read against the earlier sources in DIR, in turns
+                   (old, new, new, old);
 3. main         -- Taiji's swap data path at the paper's deployment size
                    (2 MiB MS, 4 KiB MP, ``--managed-ms`` managed MSs of
                    guest frames in HBM, +50% elastic): fill past physical
                    memory, reclaim, passive faults, active swap-in,
                    hv_sched background reclaim under guest traffic, then
-                   every live MS checked byte for byte;
+                   every live MS checked byte for byte; per MS swapped in,
+                   one verified scatter and one host wait a chunk, and no
+                   other scatter, Fletcher pass or index upload;
 4. corrupt      -- a flipped extent tag must raise CorruptionError from
                    the device-side check;
 5. hot-switch   -- a plain system with ``--managed-ms`` MSs of frames in
@@ -103,6 +110,11 @@ KERNELS = {
     # launches are their checks' own
     "gather_rows": ("gather", "src/repro/kernels/swap_copy.py:40", SWAP_SOURCE,
                     None),
+    # the verified scatter: its check-and-write mode is the swap-in's
+    # write (with the tags the swap-in's Fletcher pass checked), its plain
+    # mode the fault path's readahead scatter
+    "scatter_verified_rows": ("scatter_verified", "src/repro/kernels/swap_copy.py:69",
+                              SWAP_SOURCE, "swap path"),
     "scatter_rows_": ("scatter", "src/repro/kernels/swap_copy.py:69", SWAP_SOURCE,
                       "swap path"),
     "zero_rows": ("zero", "src/repro/kernels/zero_detect.py:42", SWAP_SOURCE,
@@ -119,10 +131,11 @@ KERNELS = {
     "block_dequantize": ("dequantize", "src/repro/kernels/compress.py:63",
                          QUANT_SOURCE, None),
 }
-SWAP_COUNTERS = ("gather", "scatter", "zero", "fletcher")
+SWAP_COUNTERS = ("gather", "scatter", "scatter_verified", "zero", "fletcher")
 # what each swap phase must launch: the compacting gather (counted as
-# "gather"), Fletcher and, where MSs come back, scatter; and no separate
-# zero scan, which the gather does
+# "gather"), Fletcher and, where MSs come back through faults, the plain
+# scatter; and no separate zero scan, which the gather does. The main
+# path's active swap-in also launches the verified scatter
 SWAP_OUT_IN = ("gather", "scatter", "fletcher")
 SWAP_OUT = ("gather", "fletcher")
 # the L2-cold timings write this much between launches: more than the
@@ -337,7 +350,66 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
         library_us=time_us(torch, lambda: torch.index_select(pool, 0, idx_dev)),
         bound=bound_us(2 * 64 * 4096, 0))
 
-    # scatter (in place: untouched rows must keep their bytes)
+    # the verified scatter, bit for bit against its plain version: the
+    # staged rows (every fourth verified only), their tags (every third
+    # untagged), zero rows -- at the main-path chunk, a whole MS (more
+    # rows than one launch takes), ragged rows, eight 1.125 MiB KV rows,
+    # zero rows only, and each with a tag spoiled (nothing written)
+    def verified_case(n_pool, elems, k, z):
+        pool, stage = rows(n_pool, elems), rows(k, elems, zero_every=5)
+        perm_rows = perm(n_pool, n_pool)
+        dst = perm_rows[:k].astype("int64")
+        dst[3::4] = -1
+        zero = perm_rows[k:k + z].astype("int64")
+        tags = (ref.fletcher_checksum(stage).cpu().numpy().astype("int64")
+                if k else dst[:0].copy())
+        tags[2::3] = -1
+        return pool, stage, dst, tags, zero
+
+    verified_shapes = [("chunk64", 512, 4096, 64, 16), ("whole_ms", 1024, 4096, 512, 300),
+                       ("ragged", 37, 4100, 11, 4), ("kv_rows", 16, 1_179_648, 8, 2),
+                       ("zero_only", 512, 4096, 0, 64)]
+    cases = []
+    for label, n_pool, elems, k, z in verified_shapes:
+        for spoil in ((False, True) if k else (False,)):
+            pool, stage, dst, tags, zero = verified_case(n_pool, elems, k, z)
+            if spoil:
+                tags[int((tags >= 0).nonzero()[0][-1])] ^= 1
+            want = pool.clone()
+            v_want = ref.scatter_verified_blocks_(
+                want, stage, torch.from_numpy(dst).to(dev),
+                torch.from_numpy(tags).to(dev), torch.from_numpy(zero).to(dev))
+            v_got = ops.scatter_verified_rows_(pool, stage, dst, tags, zero)
+            torch.cuda.synchronize()
+            if v_got != v_want or not torch.equal(pool, want):
+                fail(f"scatter_verified_rows_ != plain at {label}"
+                     f"{' (a tag spoiled)' if spoil else ''}: verdict {v_got} "
+                     f"against {v_want}")
+            cases.append(label + ("/spoiled" if spoil else ""))
+    # timed at the main-path chunk with every row tagged and written
+    pool, stage, idx = rows(512, 4096), rows(64, 4096), perm(512, 64)
+    tags = ref.fletcher_checksum(stage).cpu().numpy().astype("int64")
+    none = idx[:0].astype("int64")
+    idx_dev, tags_dev = (torch.from_numpy(a).to(dev) for a in (idx, tags))
+    none_dev = torch.from_numpy(none).to(dev)
+    verdict = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def verified():
+        ops.launch_scatter_verified(pool, stage, idx, tags, none, verdict)
+
+    results["scatter_verified_rows"] = dict(
+        shape="pool (512, 4096) uint8, 64 staged rows, all tagged and written",
+        max_abs_err=0.0, verified_cases=cases,
+        kernel_us=time_us(torch, verified),
+        cold=time_cold_us(torch, verified, flush),
+        plain_us=time_events_us(torch, lambda: ref.scatter_verified_blocks_(
+            pool, stage, idx_dev, tags_dev, none_dev)),
+        library_us=time_us(torch, lambda: pool.index_copy_(0, idx_dev, stage)),
+        # the rows read and written, the verdict; two sums of one
+        # multiply-add each per byte
+        bound=bound_us(2 * 64 * 4096 + 8 * 64 + 4, 4 * 64 * 4096))
+
+    # the plain scatter (in place: untouched rows must keep their bytes)
     err = 0.0
     for label, n_pool, elems, k in copy_shapes:
         pool, idx, blocks = rows(n_pool, elems), perm(n_pool, k), rows(k, elems)
@@ -352,10 +424,12 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
     idx_dev = torch.from_numpy(idx).to(dev)
     results["scatter_rows_"] = dict(
         shape="pool (512, 4096) uint8, 64 rows", max_abs_err=err,
-        kernel_us=time_us(torch, lambda: ops.launch_scatter(pool, idx_dev, blocks)),
+        kernel_us=time_us(torch, lambda: ops.launch_scatter(pool, idx, blocks)),
+        cold=time_cold_us(torch, lambda: ops.launch_scatter(pool, idx, blocks), flush),
         plain_us=time_us(torch, lambda: ref.scatter_blocks_(pool, idx_dev, blocks)),
         library_us=time_us(torch, lambda: pool.index_copy_(0, idx_dev, blocks)),
-        bound=bound_us(2 * 64 * 4096 + 8 * 64, 0))
+        # the rows read and written, their int32 indices
+        bound=bound_us(2 * 64 * 4096 + 4 * 64, 0))
 
     # zero scan: every third row zero, plus rows zero but for their last
     # byte (the launches of its check: the main path does not call it)
@@ -415,6 +489,9 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
             line["launches_in_this_check"] = r["launches"]
         if "compact_cases" in r:
             line.update(cases=r["compact_cases"],
+                        plain_timing="eager, CUDA events (it waits for the card)")
+        if "verified_cases" in r:
+            line.update(cases=r["verified_cases"],
                         plain_timing="eager, CUDA events (it waits for the card)")
         log(json.dumps(line))
     return results
@@ -531,21 +608,35 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
 
 
 def compare_old_new(torch, ops, lib_old, seed: int) -> dict:
-    """The swap-out's chunk read at the main-path shape, Fletcher at (64,
-    4096) and paged attention at the serve shape (kv_len 512), L2-warm,
-    each timed in turns -- old, new, new, old -- against ``lib_old``, a
-    library built from earlier sources of ``csrc/swap_kernels.cu`` and
-    ``csrc/paged_attention.cu``. The earlier chunk read is its device
-    work: gather, zero scan, gather of the non-zero rows (indices on the
-    device already; that path also uploaded them and waited twice); the
-    new one is one compacting gather. Both versions must agree first."""
+    """This checkout's kernels against ``lib_old``, a library built from
+    earlier sources of ``csrc/swap_kernels.cu``, ``csrc/paged_attention.cu``
+    and ``csrc/quantize.cu``, each pair timed in turns -- old, new, new,
+    old -- after both versions agree:
+
+    * swap_in_chunk_write, on the host clock, 200 chunks a turn and one
+      synchronize at the end: a 64-MP swap-in chunk of 16 extent rows
+      and 48 zero rows into a (512, 4096) frame. The earlier flow is the
+      earlier ``load_batch`` and partial swap-in: the decoded extent
+      copied to the card from pageable memory, Fletcher and a wait for
+      the tags, the rows uploaded again, an index upload and a scatter
+      into a fresh buffer, an index upload and ``index_fill_`` for the
+      zero rows, an index upload and a scatter into the frame. The new
+      one: the rows staged in a pinned buffer, one upload, one verified
+      scatter, one wait for the verdict;
+    * Fletcher at (64, 4096), paged attention at the serve shape (kv_len
+      512) and the int8 block quantize at the KV-block shape, device time
+      L2-warm;
+    * where the earlier sources still have the separate gather and zero
+      scan, the swap-out's chunk read as well (gather, zero scan, gather
+      of the non-zero rows against one compacting gather)."""
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(seed + 11)
     x = torch.randint(0, 256, (64, 4096), generator=g, dtype=torch.uint8).to(dev)
     f_new = torch.empty(64, dtype=torch.uint32, device=dev)
     f_old = torch.empty_like(f_new)
+    out = {}
 
-    def stream():          # the capturing stream, inside a CUDA graph
+    def stream():          # the current stream (a CUDA graph's, capturing)
         return torch.cuda.current_stream().cuda_stream
 
     def fletcher_old():
@@ -556,25 +647,6 @@ def compare_old_new(torch, ops, lib_old, seed: int) -> dict:
     frame[::3] = 0
     frame = frame.to(dev)
     idx = torch.randperm(512, generator=g)[:64].numpy()
-    idx_dev = torch.from_numpy(idx).to(dev)
-    data = torch.empty((64, 4096), dtype=torch.uint8, device=dev)
-    z_old = torch.empty(64, dtype=torch.bool, device=dev)
-    need = (frame.cpu()[torch.from_numpy(idx)] != 0).any(dim=1).nonzero()[:, 0].to(dev)
-    rows_old = torch.empty((len(need), 4096), dtype=torch.uint8, device=dev)
-    meta = torch.empty(4 + 64, dtype=torch.uint8, device=dev)
-    rows_new = torch.empty((64, 4096), dtype=torch.uint8, device=dev)
-
-    def chunk_old():
-        return (lib_old.swap_gather_rows(frame.data_ptr(), idx_dev.data_ptr(),
-                                         data.data_ptr(), 64, 4096, stream())
-                or lib_old.swap_zero_rows(data.data_ptr(), z_old.data_ptr(), 64,
-                                          4096, stream())
-                or lib_old.swap_gather_rows(data.data_ptr(), need.data_ptr(),
-                                            rows_old.data_ptr(), len(need), 4096,
-                                            stream()))
-
-    def chunk_new():
-        ops.launch_gather_nonzero(frame, idx, meta, rows_new)
 
     B, H, KV, hd, bt, mbs = SERVE_BATCH, 32, 8, 128, 64, SERVE_MAX_SEQ // 64
     q = torch.randn((B, H, hd), generator=g).bfloat16().to(dev)
@@ -591,48 +663,184 @@ def compare_old_new(torch, ops, lib_old, seed: int) -> dict:
             a_old.data_ptr(), ws.data_ptr(), B, H, KV, hd, bt, mbs, B * mbs,
             n_split, 2, 2, hd ** -0.5, stream())
 
-    if fletcher_old() or attn_old() or chunk_old():
+    gq = torch.Generator(device=dev).manual_seed(seed + 12)
+    xq = (torch.randn(QUANT_CARD_SHAPE, generator=gq, device=dev) * 4).bfloat16()
+    n_mps = QUANT_CARD_SHAPE[0] * QUANT_CARD_MPS
+    mp = QUANT_CARD_SHAPE[1] // QUANT_CARD_MPS
+    qo, qn = (torch.empty(QUANT_CARD_SHAPE, dtype=torch.int8, device=dev) for _ in "on")
+    so, sn = (torch.empty((QUANT_CARD_SHAPE[0], QUANT_CARD_MPS), dtype=torch.float32,
+                          device=dev) for _ in "on")
+
+    def quant_old():
+        return lib_old.quant_block_quantize(xq.data_ptr(), qo.data_ptr(), so.data_ptr(),
+                                            n_mps, mp, 2, stream())
+
+    def quant_new():
+        ops.launch_quantize(xq, qn, sn)
+
+    if fletcher_old() or attn_old() or quant_old():
         fail("old-vs-new: a launch of the earlier sources failed")
     ops.launch_fletcher(x, f_new)
     ops.launch_paged_attn(q, pool, table, kv_len, a_new)
-    chunk_new()
+    quant_new()
     torch.cuda.synchronize()
     if not torch.equal(f_old, f_new):
         fail("old-vs-new: the two Fletcher kernels disagree")
-    count = int(meta[:4].cpu().view(torch.int32))
-    if not (count == len(need) and torch.equal(rows_new[:count], rows_old)
-            and torch.equal(meta[4:].view(torch.bool), z_old)):
-        fail("old-vs-new: the chunk reads disagree")
+    if not (torch.equal(qo, qn) and torch.equal(so.view(torch.int32), sn.view(torch.int32))):
+        fail("old-vs-new: the two quantize kernels disagree")
     attn_diff = float((a_old.float() - a_new.float()).abs().max())
     if not attn_diff <= ATTN_TOL["bfloat16"]:
         fail(f"old-vs-new: the two paged kernels differ by {attn_diff}")
-    out = {}
-    for name, old, new in (
-            ("swap_out_chunk_read", chunk_old, chunk_new),
-            ("fletcher_rows", fletcher_old, lambda: ops.launch_fletcher(x, f_new)),
-            ("paged_decode_attention", attn_old,
-             lambda: ops.launch_paged_attn(q, pool, table, kv_len, a_new))):
+    pairs = [("fletcher_rows", fletcher_old, lambda: ops.launch_fletcher(x, f_new)),
+             ("paged_decode_attention", attn_old,
+              lambda: ops.launch_paged_attn(q, pool, table, kv_len, a_new)),
+             ("block_quantize", quant_old, quant_new)]
+
+    if has_symbols(lib_old, "swap_gather_rows", "swap_zero_rows"):
+        idx_dev = torch.from_numpy(idx).to(dev)
+        data = torch.empty((64, 4096), dtype=torch.uint8, device=dev)
+        z_old = torch.empty(64, dtype=torch.bool, device=dev)
+        need = (frame.cpu()[torch.from_numpy(idx)] != 0).any(dim=1).nonzero()[:, 0].to(dev)
+        rows_old = torch.empty((len(need), 4096), dtype=torch.uint8, device=dev)
+        meta = torch.empty(4 + 64, dtype=torch.uint8, device=dev)
+        rows_new = torch.empty((64, 4096), dtype=torch.uint8, device=dev)
+
+        def chunk_old():
+            return (lib_old.swap_gather_rows(frame.data_ptr(), idx_dev.data_ptr(),
+                                             data.data_ptr(), 64, 4096, stream())
+                    or lib_old.swap_zero_rows(data.data_ptr(), z_old.data_ptr(), 64,
+                                              4096, stream())
+                    or lib_old.swap_gather_rows(data.data_ptr(), need.data_ptr(),
+                                                rows_old.data_ptr(), len(need), 4096,
+                                                stream()))
+
+        def chunk_new():
+            ops.launch_gather_nonzero(frame, idx, meta, rows_new)
+
+        if chunk_old():
+            fail("old-vs-new: a launch of the earlier sources failed")
+        chunk_new()
+        count = int(meta[:4].cpu().view(torch.int32))
+        if not (count == len(need) and torch.equal(rows_new[:count], rows_old)
+                and torch.equal(meta[4:].view(torch.bool), z_old)):
+            fail("old-vs-new: the chunk reads disagree")
+        pairs.insert(0, ("swap_out_chunk_read", chunk_old, chunk_new))
+    for name, old, new in pairs:
         turns = [("old", old), ("new", new), ("new", new), ("old", old)]
         times = [(which, time_us(torch, fn)) for which, fn in turns]
         out[name] = {"turns_us": times,
                      "old_us": sum(t for w, t in times if w == "old") / 2,
                      "new_us": sum(t for w, t in times if w == "new") / 2}
     out["paged_decode_attention"]["max_abs_diff"] = attn_diff
-    out["swap_out_chunk_read"].update(
-        old="gather_rows + zero_rows + gather_rows (non-zero rows)",
-        new="gather_nonzero_rows", non_zero_rows=count)
+    if "swap_out_chunk_read" in out:
+        out["swap_out_chunk_read"].update(
+            old="gather_rows + zero_rows + gather_rows (non-zero rows)",
+            new="gather_nonzero_rows")
+    if has_symbols(lib_old, "swap_scatter_rows"):
+        out["swap_in_chunk_write"] = swap_in_chunk_write(torch, ops, lib_old, g)
     log(json.dumps({"old_vs_new": out}))
     free_device(torch)
     return out
 
 
+def has_symbols(lib, *names) -> bool:
+    try:
+        for name in names:
+            getattr(lib, name)
+    except AttributeError:
+        return False
+    return True
+
+
+def swap_in_chunk_write(torch, ops, lib_old, g, n_chunks: int = 200) -> dict:
+    """Host-clock device work of one partial swap-in chunk, the earlier
+    flow against the new, in turns (see :func:`compare_old_new`); both
+    must leave the same frame first."""
+    import numpy as np
+    dev = torch.device("cuda")
+    n, k, n_data = 4096, 64, 16
+    idxs = np.sort(torch.randperm(512, generator=g)[:k].numpy())
+    data_pos = np.sort(torch.randperm(k, generator=g)[:n_data].numpy())
+    zero_pos = np.setdiff1d(np.arange(k), data_pos)
+    ext = torch.randint(0, 256, (n_data, n), generator=g, dtype=torch.uint8).numpy()
+    ext_ro = np.frombuffer(ext.tobytes(), dtype=np.uint8).reshape(n_data, n)
+    tags = torch.from_numpy(ext).to(dev)
+    tags = ops.fletcher_rows(tags).cpu().numpy()
+    frames = {w: torch.full((512, n), 0xA5, dtype=torch.uint8, device=dev)
+              for w in ("old", "new")}
+    f_old = torch.empty(n_data, dtype=torch.uint32, device=dev)
+    stage_np = np.empty((n_data, n), dtype=np.uint8)
+    data_rows, zero_rows = data_pos.astype(np.int64), zero_pos.astype(np.int64)
+    voff = n_data * n
+    buf = torch.empty(voff + 16, dtype=torch.uint8, pin_memory=True)
+    dev_buf = torch.empty(voff + 16, dtype=torch.uint8, device=dev)
+    staged = buf.numpy()[:voff].reshape(n_data, n)
+    dst, zero = idxs[data_pos], idxs[zero_pos]
+    tag64 = tags.astype(np.int64)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def old():
+        frame = frames["old"]
+        d = torch.from_numpy(ext_ro.copy()).to(dev)           # the tag check
+        if lib_old.swap_fletcher_rows(d.data_ptr(), f_old.data_ptr(), n_data, n, stream):
+            fail("old-vs-new: the earlier Fletcher launch failed")
+        if (f_old.cpu().numpy() != tags).any():
+            fail("old-vs-new: the earlier tag check failed")
+        stage_np[:] = ext_ro
+        out = torch.empty((k, n), dtype=torch.uint8, device=dev)
+        st = torch.from_numpy(stage_np).to(dev)
+        i1 = torch.from_numpy(data_rows).to(dev)
+        rc = lib_old.swap_scatter_rows(out.data_ptr(), i1.data_ptr(), st.data_ptr(),
+                                       n_data, n, stream)
+        out.index_fill_(0, torch.from_numpy(zero_rows).to(dev), 0)
+        i2 = torch.from_numpy(idxs).to(dev)
+        rc = rc or lib_old.swap_scatter_rows(frame.data_ptr(), i2.data_ptr(),
+                                             out.data_ptr(), k, n, stream)
+        if rc:
+            fail("old-vs-new: the earlier scatter launch failed")
+
+    def new():
+        staged[:] = ext_ro
+        if ops.scatter_staged_rows_(frames["new"], buf, dev_buf, n_data, dst,
+                                    tag64, zero) != -1:
+            fail("old-vs-new: the verified scatter's tag check failed")
+
+    old()
+    new()
+    torch.cuda.synchronize()
+    if not torch.equal(frames["old"], frames["new"]):
+        fail("old-vs-new: the two swap-in chunk writes disagree")
+
+    def per_chunk_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n_chunks * 1e6
+
+    times = [(w, per_chunk_us(fn)) for w, fn in
+             (("old", old), ("new", new), ("new", new), ("old", old))]
+    return {"turns_us": times,
+            "old_us": sum(t for w, t in times if w == "old") / 2,
+            "new_us": sum(t for w, t in times if w == "new") / 2,
+            "clock": "host, per chunk", "chunk": f"{k} MPs: {n_data} extent "
+            f"rows, {len(zero_rows)} zero rows, into a (512, {n}) frame",
+            "old": "Fletcher + wait, stage upload, 3 index uploads, scatter, "
+                   "index_fill_, scatter",
+            "new": "one call: pinned upload, verified scatter, verdict back, "
+                   "one wait"}
+
+
 def start_old_build(src_dir: Path):
-    """Start one nvcc that builds ``src_dir``'s swap_kernels.cu and
-    paged_attention.cu (earlier versions of this checkout's sources) into
-    a library of their own; returns the process and the library's path."""
+    """Start one nvcc that builds ``src_dir``'s swap_kernels.cu,
+    paged_attention.cu and quantize.cu (earlier versions of this
+    checkout's sources) into a library of their own; returns the process
+    and the library's path."""
     import atexit
     from repro_torch.kernels import _build
-    srcs = [src_dir / "swap_kernels.cu", src_dir / "paged_attention.cu"]
+    srcs = [src_dir / "swap_kernels.cu", src_dir / "paged_attention.cu",
+            src_dir / "quantize.cu"]
     missing = [str(p) for p in srcs if not p.is_file()]
     if missing:
         fail(f"--compare-sources: missing {missing}")
@@ -647,7 +855,9 @@ def start_old_build(src_dir: Path):
 
 
 def load_old_build(proc, path: Path):
-    """Wait for :func:`start_old_build`'s nvcc and load its library."""
+    """Wait for :func:`start_old_build`'s nvcc and load its library; the
+    entry points that are gone from this checkout's sources get their
+    earlier signatures where the library has them."""
     import ctypes
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -656,13 +866,18 @@ def load_old_build(proc, path: Path):
         fail(f"--compare-sources: nvcc failed ({proc.returncode}):\n{text}")
     lib = ctypes.CDLL(str(path))
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    # the earlier gather and zero scan, gone from this checkout's sources
     earlier = {"swap_gather_rows": (vp, vp, vp, i64, i64, vp),
-               "swap_zero_rows": (vp, vp, i64, i64, vp)}
-    for name in ("swap_fletcher_rows", "paged_attn_decode", *earlier):
+               "swap_zero_rows": (vp, vp, i64, i64, vp),
+               "swap_scatter_rows": (vp, vp, vp, i64, i64, vp)}
+    for name in ("swap_fletcher_rows", "paged_attn_decode", "quant_block_quantize"):
         fn = getattr(lib, name)
-        fn.argtypes = list(earlier.get(name) or _build._SIGNATURES[name])
+        fn.argtypes = list(_build._SIGNATURES[name])
         fn.restype = ctypes.c_int
+    for name, argtypes in earlier.items():
+        if has_symbols(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     log(f"build: earlier sources into {path.name} (waited "
         f"{time.perf_counter() - t0:.1f} s more)")
     return lib
@@ -696,7 +911,11 @@ def check_quantize(torch, ops, ref, seed: int) -> dict:
         return x
 
     cases = []
-    for n, elems, mps in [(2, 512, 4), (4, 1024, 8), (1, 2048, 16), (6, 768, 3)]:
+    # tests/test_kernels.py's sweep, then MPs against the quantize
+    # kernel's clusters: sixteen blocks held in shared memory (bf16, f16),
+    # an MP too large to hold (read twice), odd lengths
+    for n, elems, mps in [(2, 512, 4), (4, 1024, 8), (1, 2048, 16), (6, 768, 3),
+                          (2, 2 * 800_000, 2), (1, 1 << 21, 1), (2, 3 * 100_003, 3)]:
         x = torch.randn((n, elems), generator=g) * 4
         x[0, :elems // mps] = 0
         cases += [(f"sweep{n}x{elems}/{mps}", x, mps)]
@@ -733,6 +952,7 @@ def check_quantize(torch, ops, ref, seed: int) -> dict:
     del pq, ps
     out = torch.empty_like(x)
     lib_out = torch.empty_like(x)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     n, mp = x.shape[0], x.shape[1] // mps
 
     def library():
@@ -749,6 +969,7 @@ def check_quantize(torch, ops, ref, seed: int) -> dict:
         "block_quantize": dict(
             shape=shape, max_abs_err=0.0,
             kernel_us=time_us(torch, lambda: ops.launch_quantize(x, q, s)),
+            cold=time_cold_us(torch, lambda: ops.launch_quantize(x, q, s), flush),
             plain_us=time_us(torch, lambda: ref.block_quantize(x, mps), inner=10),
             library_us=None,
             # abs, max, divide, round and two clamps per element, in f32
@@ -768,21 +989,25 @@ def check_quantize(torch, ops, ref, seed: int) -> dict:
                           ("block_dequantize", "dequantize")):
         r = results[name]
         r["launches"] = launches[counter]
-        log(json.dumps({"kernel": name, "shape": r["shape"],
-                        "equal_to_plain": True, "tolerance": 0,
-                        "cases": [c[0] for c in cases] + [shape],
-                        "launches_in_this_check": r["launches"],
-                        "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
-                        "bound_us": r["bound"][0], "bound_by": r["bound"][1],
-                        "library_us": r["library_us"]}))
-    del x, q, s, out, lib_out
+        line = {"kernel": name, "shape": r["shape"],
+                "equal_to_plain": True, "tolerance": 0,
+                "cases": [c[0] for c in cases] + [shape],
+                "launches_in_this_check": r["launches"],
+                "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
+                "bound_us": r["bound"][0], "bound_by": r["bound"][1],
+                "library_us": r["library_us"]}
+        if "cold" in r:
+            line.update(l2_cold_us=r["cold"][0], flush_plus_kernel_us=r["cold"][1],
+                        flush_us=r["cold"][2])
+        log(json.dumps(line))
+    del x, q, s, out, lib_out, flush
     free_device(torch)
     return results
 
 
 # ------------------------------------------------------------- main path
 def per_ms(now: dict, before: dict, n_ms: int) -> dict:
-    return {k: (now[k] - before[k]) / n_ms for k in now} if n_ms else {}
+    return {k: (now[k] - before.get(k, 0)) / n_ms for k in now} if n_ms else {}
 
 
 def paper_mix_images(np, n_img: int, mps: int, mp: int, seed: int):
@@ -914,19 +1139,43 @@ def main_path(torch, np, core, ops, managed: int, seed: int):
         f"{dt:.1f} s; fault p50 {phases['fault_p50_us']:.2f} us p90 "
         f"{phases['fault_p90_us']:.2f} us")
 
-    # 3. active swap-in
-    in0, l0 = m.mp_swapped_in, dict(ops.launches)
+    # 3. active swap-in: per MS, one verified scatter and one verdict wait
+    # a chunk (8), no other scatter, no index upload, and no Fletcher pass
+    # on the swap-in side: a cut-down run may reclaim synchronously here,
+    # and each swap-out chunk launches one compacting gather and at most
+    # one Fletcher pass, so the swap-in's own are those beyond the gathers
+    in0, b0 = m.mp_swapped_in, m.swap_in_batches
+    l0, x0 = dict(ops.launches), dict(ops.transfers)
     t0 = time.perf_counter()
     for g in active:
         s.engine.swap_in_ms(g)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    lpm = per_ms(dict(ops.launches), l0, len(active))
+    xpm = per_ms(dict(ops.transfers), x0, len(active))
+    chunks = (m.swap_in_batches - b0) / len(active)
+    want_chunks = mps / cfg.swap.batch_mps
+    swap_in_fletcher = max(0.0, lpm.get("fletcher", 0) - lpm.get("gather", 0))
     phases.update(swap_in_s=dt,
                   swap_in_mp_per_s=(m.mp_swapped_in - in0) / dt,
-                  launches_per_ms_swapped_in=per_ms(ops.launches, l0,
-                                                    len(active)))
+                  launches_per_ms_swapped_in=lpm,
+                  transfers_per_ms_swapped_in=xpm,
+                  chunks_per_ms_swapped_in=chunks)
     log(f"main: active swap-in {len(active)} MSs, "
-        f"{m.mp_swapped_in - in0} MPs in {dt:.1f} s")
+        f"{m.mp_swapped_in - in0} MPs in {dt:.1f} s; per MS: {chunks} chunks, "
+        f"{lpm.get('scatter_verified', 0)} verified scatters, "
+        f"{lpm.get('scatter', 0)} plain scatters, {swap_in_fletcher} Fletcher "
+        f"passes on the swap-in side ({lpm.get('fletcher', 0)} in all, "
+        f"{lpm.get('gather', 0)} swap-out gathers), {xpm['verdict_wait']} host "
+        f"waits, {xpm['index_upload']} index uploads")
+    if not (chunks == want_chunks
+            and lpm.get("scatter_verified", 0) == want_chunks
+            and lpm.get("scatter", 0) == 0 and swap_in_fletcher == 0
+            and xpm["verdict_wait"] == want_chunks and xpm["index_upload"] == 0):
+        fail(f"active swap-in: per MS {chunks} chunks, launches {lpm}, "
+             f"transfers {xpm}; want {want_chunks} chunks, as many verified "
+             f"scatters and host waits, no other scatter, no Fletcher pass on "
+             f"the swap-in side, no index upload")
 
     # 4. hv_sched background reclaim under guest reads and writes: the
     # reclaim task launches the kernels from the scheduler's threads. The
@@ -962,7 +1211,10 @@ def main_path(torch, np, core, ops, managed: int, seed: int):
         f"by hv_sched")
     if m.mp_swapped_out == out0:
         fail("hv_sched reclaimed nothing in the background phase")
-    launches = dict(ops.launches)
+    launches, transfers = dict(ops.launches), dict(ops.transfers)
+    if transfers["index_upload"]:
+        fail(f"{transfers['index_upload']} index vectors uploaded on the main "
+             f"path; every swap kernel takes its indices by value")
     phases["host_copy_us"] = host_copy_costs(torch, np, s, want, images)
     log(f"main: host copies (median us): {phases['host_copy_us']}")
 
@@ -983,11 +1235,11 @@ def main_path(torch, np, core, ops, managed: int, seed: int):
         f"{phases['verify_s']:.1f} s ({resident_ms} fully resident)")
     if counters["crc_failures"]:
         fail(f"{counters['crc_failures']} CRC failures on the main path")
-    check_swap_launches("main", launches, SWAP_OUT_IN)
+    check_swap_launches("main", launches, SWAP_OUT_IN + ("scatter_verified",))
     log(json.dumps({"main_path": {
         "frames_gib": frames_gib, "managed_ms": managed,
         "reserve_ms": reserve, "live_ms": len(want), **phases,
-        "counters": counters, "launches": launches}}))
+        "counters": counters, "launches": launches, "transfers": transfers}}))
     return s, launches
 
 
@@ -1540,7 +1792,7 @@ def elastic_kv(torch, ops, seed: int) -> dict:
                         turns=30, batch=4, prompt_len=24, gen_len=8,
                         seed=seed, device="cuda", verify=True)
     dt = time.perf_counter() - t0
-    launches = {k: ops.launches[k] for k in SWAP_COUNTERS}
+    launches = {k: ops.launches.get(k, 0) for k in SWAP_COUNTERS}
     m, res = stats["metrics"], stats["residency"]
     if m["ms_swapped_out"] <= 0:
         fail("elastic-kv: no KV block was swapped out")
@@ -1577,7 +1829,7 @@ def elastic_serving(torch, ops, seed: int) -> dict:
     t0 = time.perf_counter()
     stats = run(get_config(SERVE_ARCH), phys_blocks=24, device="cuda", seed=seed)
     dt = time.perf_counter() - t0
-    launches = {k: ops.launches[k] for k in SWAP_COUNTERS}
+    launches = {k: ops.launches.get(k, 0) for k in SWAP_COUNTERS}
     m = stats["metrics"]
     if stats["entry_version"] != 2 or stats["module_version"] != 2:
         fail(f"elastic-serving: module v{stats['entry_version']} at the end")
@@ -1604,10 +1856,12 @@ def main() -> int:
                          "(16384 = the paper's 32 GiB)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-sources", type=Path, default=None,
-                    help="a directory with earlier swap_kernels.cu and "
-                         "paged_attention.cu: time the swap-out's chunk "
-                         "read, Fletcher and paged attention against them, "
-                         "in turns")
+                    help="a directory with earlier swap_kernels.cu, "
+                         "paged_attention.cu and quantize.cu: time the "
+                         "swap-in's chunk write (host clock), Fletcher, "
+                         "paged attention, quantize and, where the earlier "
+                         "sources allow, the swap-out's chunk read against "
+                         "them, in turns")
     args = ap.parse_args()
 
     import numpy as np
@@ -1668,7 +1922,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[counter] if path else r["launches"],
+            "launches": launches.get(counter, 0) if path else r["launches"],
             "max_abs_err": r["max_abs_err"],
             "ms": r["kernel_us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
             "bound_ms": r["bound"][0] / 1e3, "bound_by": r["bound"][1],

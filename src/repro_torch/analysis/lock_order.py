@@ -98,6 +98,9 @@ LOCK_CLASSES: Dict[str, LockClass] = {c.name: c for c in (
     LockClass("backend.disk", 55, "BackendStore._disk_lock: disk tier"),
     LockClass("backend.remote", 56,
               "BackendStore._remote_lock: remote-peer replica tier"),
+    LockClass("backend.staging", 57,
+              "BackendStore._staging: free list of the swap-in's host "
+              "staging buffers (nothing is acquired under it)"),
     # -- reclaim machinery
     LockClass("lru", 60, "MultiLevelLRU._lock (probe phase is lock-free)"),
     LockClass("watermark", 62, "WatermarkPolicy._lock: reclaim hysteresis"),

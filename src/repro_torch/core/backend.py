@@ -49,9 +49,11 @@ Port: the batched entry points take rows on the frames' device.
 flags the zero rows and compacts the non-zero ones) and tags the non-zero
 rows (``ops.fletcher_rows``); only those rows and tags are copied to the
 host -- once per batch -- for ``zlib.crc32``/``zlib.compress``.
-Loads decode into a host staging array, verify the CRCs there, then copy
-the rows to the device once and scatter them into ``out`` in place
-(``ops.scatter_rows_``); the extent tags are re-checked on the device.
+Loads decode into a reused host staging buffer (pinned on the card),
+verify the CRCs there, then upload the rows once; one launch
+(``ops.scatter_verified_rows_``) re-checks the extent tags on the device
+and writes the rows into ``out`` in place -- or nothing, where a tag
+differs -- and one 4-byte verdict comes back.
 Stored bytes, kinds, CRCs, extent tags and :meth:`stats` are the
 reference's.
 """
@@ -149,6 +151,51 @@ class _Extent:
         self.tags = tags
 
 
+class _Staging:
+    """Reused staging buffers for the swap-in's uploads: a lock-guarded
+    free list of (host, device, event), each at least ``nbytes``
+    (``batch_mps * mp_bytes``) and grown on demand. Where the frames are
+    on the card the host buffer is pinned (an asynchronous upload is one
+    DMA; the CPU-only build cannot pin) and has a device twin of the same
+    size, whose reuse the stream orders. A pair given back with its
+    upload still in flight carries a recorded event, and is handed out
+    again only after it."""
+
+    def __init__(self, device: torch.device, nbytes: int) -> None:
+        self.device = device
+        self.nbytes = nbytes
+        self._free: List[tuple] = []
+        self._lock = named_lock("backend.staging")
+
+    def take(self, nbytes: int) -> tuple:
+        """``(host, device or None, event or None)``, free to overwrite."""
+        with self._lock:
+            for j, entry in enumerate(self._free):
+                if entry[0].numel() >= nbytes:
+                    del self._free[j]
+                    break
+            else:
+                entry = None
+        if entry is None:
+            size = max(nbytes, self.nbytes)
+            if self.device.type == "cuda":
+                return (torch.empty(size, dtype=torch.uint8, pin_memory=True),
+                        torch.empty(size, dtype=torch.uint8, device=self.device),
+                        torch.cuda.Event())
+            return torch.empty(size, dtype=torch.uint8), None, None
+        if entry[2] is not None:
+            entry[2].synchronize()        # its last upload has been read
+        return entry
+
+    def give(self, entry: tuple, in_flight: bool) -> None:
+        """Return a pair; ``in_flight``: an upload from it may still be
+        running on the current stream."""
+        if in_flight and entry[2] is not None:
+            entry[2].record()
+        with self._lock:
+            self._free.append(entry)
+
+
 class BackendStore:
     """Unified backend over the zero/free/compressed/disk tiers."""
 
@@ -226,6 +273,9 @@ class BackendStore:
         # stage-attributed tracing (repro_torch.obs): spans for the compress
         # fan-out and the device kernel calls; None when disabled
         self._tr = metrics.tracer
+        # host buffers the swap-in stages its rows in before their upload
+        self._staging = _Staging(self.device,
+                                 max(1, cfg.swap.batch_mps) * cfg.mp_bytes)
 
     def _compress_pool(self):
         """The lazy extent-compression pool, or ``None`` for the serial
@@ -528,26 +578,6 @@ class BackendStore:
                 else:
                     ext.payload = raw
                     ext.is_raw = True
-
-    def _ext_verify_tags(self, gfn: int, eid: int, arr: np.ndarray) -> None:
-        """Device-side integrity check: copy the decoded extent rows to
-        the device, recompute their Fletcher tags there and compare with
-        the tags taken at store time. The zlib CRC check against the MS
-        record still runs afterwards -- this is the check a DPU offload
-        can run without host help."""
-        with self._ext_lock:
-            ext = self._extents.get((gfn, eid))
-            tags = ext.tags if ext is not None else None
-        if tags is None:
-            return
-        dev = torch.from_numpy(
-            arr if arr.flags.writeable else arr.copy()).to(self.device)
-        actual = ops.fletcher_rows(dev).cpu().numpy()
-        if (actual != tags).any():
-            bad = int(np.flatnonzero(actual != tags)[0])
-            self.metrics.crc_failures += 1
-            raise CorruptionError(
-                f"extent tag mismatch gfn={gfn} eid={eid} row={bad}")
 
     def _ext_release(self, gfn: int, eid: int, count: int) -> None:
         """Consume ``count`` rows of an extent, freeing it on the last."""
@@ -877,26 +907,39 @@ class BackendStore:
         return kinds, crcs
 
     def load_batch(self, gfn: int, mps: np.ndarray, kinds: np.ndarray,
-                   crcs: np.ndarray, out: torch.Tensor) -> None:
-        """Load MPs ``mps`` into the rows of ``out`` (uint8 rows on the
-        frames' device); verifies CRCs.
+                   crcs: np.ndarray, out: torch.Tensor, *,
+                   rows: Optional[np.ndarray] = None) -> None:
+        """Load MP ``mps[i]`` into row ``rows[i]`` of ``out`` (uint8 rows
+        on the frames' device; by default ``out`` has the batch's rows,
+        ``rows = arange(len(mps))``); verifies CRCs and extent tags.
 
-        Zero/free rows are memset on the device in one call and their
-        CRCs checked against the constant zero-page CRC without touching
-        the data; compressed/disk rows read their blobs with one lock
-        acquisition per touched shard, decode into a host staging array
-        and are CRC-checked there, then reach ``out`` in one
-        host-to-device copy and one in-place scatter.
+        Zero/free rows have their CRCs checked against the constant
+        zero-page CRC without touching the data. Compressed/disk rows read
+        their blobs with one lock acquisition per touched shard and decode
+        into one host staging buffer, beside every other row of each
+        touched extent that carries Fletcher tags; their CRCs are checked
+        there. Then one upload, one launch (``ops.scatter_verified_rows_``:
+        the extent rows' tags checked on the device, the data rows written
+        and the zero rows zeroed only if all of them match) and one 4-byte
+        verdict back: one host wait.
 
         All-or-nothing: backend entries are only consumed -- and ``out``
-        only written -- after every row's CRC verifies, so one corrupted
-        MP doesn't take the rest of the chunk's data with it: the caller
-        can retry or fault the good rows individually, and the bad row
-        keeps failing detectably.
+        only written -- after every row's CRC and tag verify, so one
+        corrupted MP doesn't take the rest of the chunk's data with it:
+        the caller can retry or fault the good rows individually, and the
+        bad row keeps failing detectably. The checks fail in the
+        reference's order: the zero-page CRCs, then the extent tags in the
+        order the batch first names each extent, then the CRCs of the data
+        rows.
         """
         bk = self.cfg.backend
         k = len(mps)
-        assert tuple(out.shape) == (k, self.cfg.mp_bytes)
+        n = self.cfg.mp_bytes
+        if rows is None:
+            assert tuple(out.shape) == (k, n)
+            rows = np.arange(k)
+        rows = np.asarray(rows, dtype=np.int64)
+        assert len(rows) == k and out.shape[1:] == (n,)
         kinds = np.asarray(kinds)
         crcs = np.asarray(crcs)
 
@@ -921,33 +964,70 @@ class BackendStore:
                         f"zero-page CRC mismatch gfn={gfn} "
                         f"mp={int(mps[int(bad[0])])}")
 
-        n = self.cfg.mp_bytes
         data_rows = np.flatnonzero(~zero_mask)   # compressed + disk rows
-        stage = np.empty((len(data_rows), n), dtype=np.uint8)
-        pos = np.zeros(k, dtype=np.int64)        # batch row -> stage row
-        pos[data_rows] = np.arange(len(data_rows))
-
         comp_rows = np.flatnonzero(kinds == K_COMPRESSED)
+        disk_rows = np.flatnonzero(kinds == K_DISK)
         by_shard: Dict[int, List[int]] = {}
         by_ext: Dict[int, List[Tuple[int, int]]] = {}
-        tr = self._tr
-        if len(comp_rows):
-            for i in comp_rows:
-                by_shard.setdefault(
-                    self._shard_idx(gfn, int(mps[i])), []).append(int(i))
-            blobs: Dict[int, tuple] = {}
-            for shard, rows in by_shard.items():
-                with self._locks[shard]:
-                    for i in rows:
-                        blobs[i] = self._compressed[(gfn, int(mps[i]))]
+        blob_rows: List[Tuple[int, tuple]] = []   # ("z" | "v") entries
+        for i in comp_rows:
+            by_shard.setdefault(
+                self._shard_idx(gfn, int(mps[i])), []).append(int(i))
+        blobs: Dict[int, tuple] = {}
+        for shard, shard_rows in by_shard.items():
+            with self._locks[shard]:
+                for i in shard_rows:
+                    blobs[i] = self._compressed[(gfn, int(mps[i]))]
+        for i in comp_rows.tolist():
+            entry = blobs[i]
+            if entry[0] == "x":               # extent ref: staged below
+                by_ext.setdefault(entry[1], []).append((i, entry[2]))
+            else:
+                blob_rows.append((i, entry))
+
+        # the staging plan: every row of each extent that has tags (its
+        # rows are checked whole, as the store tagged them), then the
+        # loaded rows of the other extents, then the blob and disk rows.
+        # dst: the row of ``out`` a staged row goes to (-1: verified
+        # only); tag: its expected Fletcher tag (-1: none)
+        plan = []
+        n_staged = 0
+        for eid, pairs in by_ext.items():
+            with self._ext_lock:
+                ext = self._extents.get((gfn, eid))
+                tags = ext.tags if ext is not None else None
+            plan.append((eid, pairs, tags, n_staged))
+            n_staged += len(tags) if tags is not None else len(pairs)
+        others = [i for i, _ in blob_rows] + disk_rows.tolist()
+        other_base = n_staged
+        n_staged += len(others)
+        pos = np.zeros(k, dtype=np.int64)       # batch row -> staged row
+        dst = np.full(n_staged, -1, dtype=np.int64)
+        tag = np.full(n_staged, -1, dtype=np.int64)
+        ext_of = []                             # tagged extents' (base, eid)
+        for eid, pairs, tags, base in plan:
+            if tags is not None:
+                tag[base:base + len(tags)] = tags
+                ext_of.append((base, eid))
+                for i, row in pairs:
+                    pos[i] = base + row
+            else:
+                for j, (i, _) in enumerate(pairs):
+                    pos[i] = base + j
+        pos[others] = other_base + np.arange(len(others))
+        dst[pos[data_rows]] = rows[data_rows]
+
+        # one staging pair: the rows, then (16-byte aligned) the verdict
+        voff = -(-n_staged * n // 16) * 16
+        staging = self._staging.take(voff + 16)
+        in_flight = False
+        try:
+            stage = staging[0].numpy()[:n_staged * n].reshape(n_staged, n)
+            tr = self._tr
             if tr is not None:
                 t_dz = _perf_ns()
-            for i in comp_rows:
-                entry = blobs[int(i)]
-                tag = entry[0]
-                if tag == "x":                # extent ref: bulk-extract below
-                    by_ext.setdefault(entry[1], []).append((int(i), entry[2]))
-                elif tag == "z":
+            for i, entry in blob_rows:
+                if entry[0] == "z":
                     stage[pos[i]] = np.frombuffer(zlib.decompress(entry[1]),
                                                   dtype=np.uint8)
                 else:                         # "v": stored verbatim
@@ -960,8 +1040,8 @@ class BackendStore:
                 self._ext_prefetch_raw(gfn, list(by_ext))
             if tr is not None:
                 tr.push(ST_SWAP_DECOMPRESS, t_dz, _perf_ns() - t_dz)
-            for eid, pairs in by_ext.items():
-                # one decompress + one copy for all rows of this extent
+            for eid, pairs, tags, base in plan:
+                # one decompress + one copy for the rows of this extent
                 if tr is not None:
                     t_p = _perf_ns()
                 raw = self._ext_peek(gfn, eid, count=not prefetched)
@@ -969,46 +1049,65 @@ class BackendStore:
                     # near-zero when the prefetch above already cached raw
                     tr.push(ST_SWAP_DECOMPRESS, t_p, _perf_ns() - t_p)
                 arr = np.frombuffer(raw, dtype=np.uint8).reshape(-1, n)
-                if tr is not None:
-                    t_k = _perf_ns()
-                self._ext_verify_tags(gfn, eid, arr)
-                if tr is not None:
-                    tr.push(ST_KERNEL_LOAD, t_k, _perf_ns() - t_k)
-                stage[pos[[p[0] for p in pairs]]] = arr[[p[1] for p in pairs]]
-            self.metrics.fault_compressed_pages += len(comp_rows)
+                if tags is not None:
+                    stage[base:base + len(tags)] = arr
+                else:
+                    stage[base:base + len(pairs)] = arr[[p[1] for p in pairs]]
+            if len(disk_rows):
+                with self._disk_lock:
+                    for i in disk_rows:
+                        off, nb = self._disk_offsets[(gfn, int(mps[i]))]
+                        self._disk_file.seek(off)
+                        stage[pos[i]] = np.frombuffer(self._disk_file.read(nb),
+                                                      dtype=np.uint8)
 
-        disk_rows = np.flatnonzero(kinds == K_DISK)
-        if len(disk_rows):
-            with self._disk_lock:
-                for i in disk_rows:
-                    off, nb = self._disk_offsets[(gfn, int(mps[i]))]
-                    self._disk_file.seek(off)
-                    stage[pos[i]] = np.frombuffer(self._disk_file.read(nb),
-                                                  dtype=np.uint8)
+            crc_bad = None
+            if bk.crc_enabled:
+                want = crcs.tolist()
+                for i, p in zip(data_rows.tolist(), pos[data_rows].tolist()):
+                    actual = zlib.crc32(stage[p])
+                    if actual != want[i]:
+                        crc_bad = (i, actual, want[i])
+                        break
 
-        if bk.crc_enabled:
-            self.metrics.crc_checks += len(data_rows)
-            want = crcs.tolist()
-            for i, p in zip(data_rows.tolist(), pos[data_rows].tolist()):
-                actual = zlib.crc32(stage[p])
-                if actual != want[i]:
-                    self.metrics.crc_failures += 1
-                    raise CorruptionError(
-                        f"CRC mismatch gfn={gfn} mp={int(mps[i])}: "
-                        f"{actual:#x} != {want[i]:#x}")
-
-        # every row verified: one host-to-device copy + one in-place
-        # scatter for the data rows, one device memset for the zero rows
-        if len(data_rows):
-            ops.scatter_rows_(out, data_rows,
-                              torch.from_numpy(stage).to(out.device))
-        if len(zero_rows):
-            out.index_fill_(0, torch.from_numpy(zero_rows).to(out.device), 0)
+            # the device step: with a CRC failure only the tags are
+            # checked (verify only: the tag error comes first, as in the
+            # reference); else the write, all or nothing
+            if tr is not None:
+                t_k = _perf_ns()
+            bad_row = -1
+            if crc_bad is None or ext_of:
+                in_flight = out.device.type != "cpu"
+                bad_row = ops.scatter_staged_rows_(
+                    out, staging[0], staging[1], n_staged,
+                    dst if crc_bad is None else np.full_like(dst, -1), tag,
+                    rows[zero_rows] if crc_bad is None else None)
+                in_flight = False                 # the verdict came back
+            if tr is not None:
+                tr.push(ST_KERNEL_LOAD, t_k, _perf_ns() - t_k)
+            if bad_row >= 0:
+                base, eid = max(e for e in ext_of if e[0] <= bad_row)
+                self.metrics.crc_failures += 1
+                raise CorruptionError(
+                    f"extent tag mismatch gfn={gfn} eid={eid} "
+                    f"row={bad_row - base}")
+            if len(comp_rows):
+                self.metrics.fault_compressed_pages += len(comp_rows)
+            if bk.crc_enabled:
+                self.metrics.crc_checks += len(data_rows)
+            if crc_bad is not None:
+                i, actual, want_i = crc_bad
+                self.metrics.crc_failures += 1
+                raise CorruptionError(
+                    f"CRC mismatch gfn={gfn} mp={int(mps[i])}: "
+                    f"{actual:#x} != {want_i:#x}")
+        finally:
+            self._staging.give(staging, in_flight)
 
         # consume the entries (single pass per shard)
-        for shard, rows in by_shard.items():
+        for shard, shard_rows in by_shard.items():
             with self._locks[shard]:
-                for i in rows:
+                for i in shard_rows:
                     self._compressed.pop((gfn, int(mps[i])), None)
         for eid, pairs in by_ext.items():
             self._ext_release(gfn, eid, len(pairs))
@@ -1024,6 +1123,21 @@ class BackendStore:
             len(zero_rows) * TIER_READ_LAT_NS[K_ZERO]
             + len(comp_rows) * TIER_READ_LAT_NS[K_COMPRESSED]
             + len(disk_rows) * TIER_READ_LAT_NS[K_DISK])
+
+    def write_rows(self, pool: torch.Tensor, idx: np.ndarray,
+                   rows: np.ndarray) -> None:
+        """``pool[idx[i]] = rows[i]`` from host rows (already verified):
+        one upload from a reused staging pair, one plain scatter with the
+        indices by value, and no host wait -- the pair is handed out again
+        only once its upload has run."""
+        k, n = rows.shape
+        staging = self._staging.take(k * n)
+        try:
+            staging[0].numpy()[:k * n].reshape(k, n)[:] = rows
+            ops.scatter_staged_rows_(pool, staging[0], staging[1], k, idx,
+                                     verify=False)
+        finally:
+            self._staging.give(staging, pool.device.type != "cpu")
 
     # ------------------------------------------------------------- accounting
     def stored_bytes(self) -> int:

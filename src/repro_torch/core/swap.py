@@ -22,9 +22,10 @@ on the fault/allocation path (§4.2.2 end).
 Port: MS frames are device tensors. Swap-out hands the frame and a
 chunk's MP indices to ``BackendStore.store_batch``, which reads them
 once on the device and copies only the non-zero rows to the host;
-swap-in decodes on the host, copies the
-rows to the device once and scatters them into the frame in place
-(``ops.scatter_rows_``) -- no whole-frame copy. Zero-page faults are an
+swap-in decodes on the host, uploads the
+rows once and writes them into the frame in place, their extent tags
+checked in the same launch (``ops.scatter_verified_rows_``) -- no
+whole-frame copy. Zero-page faults are an
 asynchronous device memset. All of it runs on the device's current
 stream, which every thread shares, so copies issued by the hv_sched
 reclaim threads and by the guest stay ordered.
@@ -37,7 +38,6 @@ from typing import List, Optional
 
 import numpy as _np
 
-from ..kernels import ops
 from .backend import BackendStore
 from .config import TaijiConfig
 from .errors import CorruptionError, OutOfMemoryError, PinnedError
@@ -45,14 +45,13 @@ from .lru import MultiLevelLRU
 from ..obs.tracer import (ST_BACKEND_LOAD, ST_BACKEND_STORE, ST_FAULT_ALLOC,
                           ST_FAULT_BACKEND, ST_FAULT_COPY, ST_FAULT_DESC,
                           ST_FAULT_MUTEX, ST_FAULT_READAHEAD, ST_FAULT_TOTAL,
-                          ST_READAHEAD_DECODE, ST_SWAP_IN, ST_SWAP_OUT,
-                          ST_SWAP_SCATTER)
+                          ST_READAHEAD_DECODE, ST_SWAP_IN, ST_SWAP_OUT)
 from .metrics import (FK_COMPRESSED, FK_FAST, FK_OTHER, FK_READAHEAD,
                       FK_ZERO, Metrics)
 from .ms import (H_PFN, H_PRESENT, H_STATE, K_COMPRESSED, K_FREE,
                  K_NONE, K_ZERO, MS_RESIDENT, MS_SWAPPED)
 from .req import Req, ReqTree
-from .virt import F_PINNED, NO_PFN, VirtualizationLayer, host_u8, to_host
+from .virt import F_PINNED, NO_PFN, VirtualizationLayer, to_host
 from .watermark import WatermarkPolicy
 
 _perf_ns = time.perf_counter_ns
@@ -494,11 +493,11 @@ class SwapEngine:
                 ok_mps.add(mp)
             copy = [p for p in pairs if p[0] in ok_mps]
             if copy:
-                # one H2D copy of the verified rows, one in-place scatter
-                rows = host_u8(arr[[p[1] for p in copy]]).view(len(copy), mb)
-                ops.scatter_rows_(self.virt.phys.ms_rows(pfn),
-                                  _np.array([p[0] for p in copy]),
-                                  rows.to(self._buf.device))
+                # one upload of the verified rows from a reused staging
+                # buffer, one in-place scatter, indices by value
+                self.backend.write_rows(self.virt.phys.ms_rows(pfn),
+                                        _np.array([p[0] for p in copy]),
+                                        arr[[p[1] for p in copy]])
             consumed = ([mp] if my_ok else []) + good
             if consumed:
                 self.backend.consume_extent_rows(gfn, eid, consumed)
@@ -806,27 +805,14 @@ class SwapEngine:
             ms = self.virt.phys.ms_rows(pfn)
             ok = False
             try:
-                if len(idxs) == cfg.mps_per_ms:
-                    # whole-MS chunk: rows i and MPs i coincide, so the
-                    # backend's scatter lands straight in the MS frame
-                    if tr is not None:
-                        t_bl = _perf_ns()
-                    self.backend.load_batch(gfn, idxs, kinds, crcs, ms)
-                    if tr is not None:
-                        tr.push(ST_BACKEND_LOAD, t_bl, _perf_ns() - t_bl)
-                else:
-                    out = self._buf.new_empty((len(idxs), cfg.mp_bytes))
-                    if tr is not None:
-                        t_bl = _perf_ns()
-                    self.backend.load_batch(gfn, idxs, kinds, crcs, out)
-                    if tr is not None:
-                        t_sc = _perf_ns()
-                        tr.push(ST_BACKEND_LOAD, t_bl, t_sc - t_bl)
-                    # in place: only the latched rows are written, so a
-                    # racing guest write to another MP of this frame stays
-                    ops.scatter_rows_(ms, idxs, out)
-                    if tr is not None:
-                        tr.push(ST_SWAP_SCATTER, t_sc, _perf_ns() - t_sc)
+                if tr is not None:
+                    t_bl = _perf_ns()
+                # straight into the MS frame, in place: only the latched
+                # rows are written, so a racing guest write to another MP
+                # of this frame stays
+                self.backend.load_batch(gfn, idxs, kinds, crcs, ms, rows=idxs)
+                if tr is not None:
+                    tr.push(ST_BACKEND_LOAD, t_bl, _perf_ns() - t_bl)
                 ok = True
             finally:
                 with req.mp_cond:

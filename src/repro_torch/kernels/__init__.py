@@ -11,7 +11,11 @@ and the wrappers that pick between them.
   zero_rows      -- zero-page scan  (repro/kernels/zero_detect.py:zero_detect)
   gather_nonzero_rows -- the swap-out's chunk read: both of the above in
                  one pass that hands back only the non-zero rows
-  scatter_rows_  -- swap-in copy    (repro/kernels/swap_copy.py:scatter_blocks)
+  scatter_verified_rows_ -- the swap-in's write: staged rows' tags
+                 checked and the frame written (or not) in one launch
+                 (repro/kernels/swap_copy.py:scatter_blocks, and the
+                 swap-in's use of crc32c.py:fletcher_checksum)
+  scatter_rows_  -- its plain mode, the fault path's copy
   fletcher_rows  -- extent-row tags (repro/kernels/crc32c.py:fletcher_checksum)
   paged_decode_attention -- decode attention through the block table
                  (repro/kernels/paged_attention.py:paged_decode_attention)

@@ -41,7 +41,11 @@ _SIGNATURES = {
     # mode, pool, host int32 indices (or NULL), n, elems, out, zero flags,
     # count, stream
     "swap_gather_pass": (_I32, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _VP),
-    "swap_scatter_rows": (_VP, _VP, _VP, _I64, _I64, _VP),
+    # pool, pool rows, stage, n, elems, host int64 destinations, tags and
+    # zero rows, n_zero, verdict, host upload, host verdict, stream, host
+    # int32 launch count
+    "swap_scatter_verified": (_VP, _I64, _VP, _I64, _I64, _VP, _VP, _VP, _I64,
+                              _VP, _VP, _VP, _VP, _VP),
     "swap_fletcher_rows": (_VP, _VP, _I64, _I64, _VP),
     # q, pool, block_table, kv_len, out, workspace, B, H, KV, hd, bt, mbs,
     # n_blocks, n_split, q dtype, pool dtype, scale, stream

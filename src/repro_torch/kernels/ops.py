@@ -1,5 +1,6 @@
-"""Wrappers of the port's kernels: the four swap data-path kernels, paged
-decode attention and the int8 block quantize/dequantize pair.
+"""Wrappers of the port's kernels: the swap data-path kernels (the
+indexed pass, the verified scatter, Fletcher tags), paged decode
+attention and the int8 block quantize/dequantize pair.
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches
 on where its tensors live:
@@ -13,15 +14,17 @@ on where its tensors live:
   nothing.
 
 Index vectors of the swap kernels come from the host bitmaps (numpy);
-the wrappers check them against the pool on the host. The indexed pass
-(gather, zero scan, and the swap-out's compacting gather) takes them by
-value in its launch parameters; scatter copies them to the device once
-per call. Paged attention takes its block table and lengths on the
+the wrappers check them against the pool on the host, and both the
+indexed pass (gather, zero scan, and the swap-out's compacting gather)
+and the verified scatter (the swap-in's write, and the plain scatter)
+take them by value in their launch parameters. Paged attention takes its block table and lengths on the
 device and never synchronises: the kernel itself traps on a table entry
 out of range.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 from typing import Dict
 
 import numpy as np
@@ -33,22 +36,33 @@ from . import _build, ref
 # launches of each kernel since the last reset; plain integers, bumped
 # only where a kernel is launched. hv_sched threads launch too, so every
 # bump and reset holds the lock (a bare += can lose an increment). The
-# paged-attention ("paged_attn") and quantize ("quantize", "dequantize")
-# entries appear with their first launch
+# verified scatter's ("scatter_verified": the swap-in's write; "scatter"
+# counts its plain mode), paged attention's ("paged_attn") and quantize's
+# ("quantize", "dequantize") entries appear with their first launch
 launches: Dict[str, int] = {"gather": 0, "scatter": 0, "zero": 0,
                             "fletcher": 0}
+# host transfers around the swap kernels, counted the same way: index
+# vectors uploaded on their own, and host waits for a verified scatter's
+# verdict
+transfers: Dict[str, int] = {"index_upload": 0, "verdict_wait": 0}
 _count_lock = named_lock("metrics")
 
 
 def reset_launches() -> None:
     with _count_lock:
-        for k in launches:
-            launches[k] = 0
+        for counts in (launches, transfers):
+            for k in counts:
+                counts[k] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _count_lock:
-        launches[name] = launches.get(name, 0) + 1
+        launches[name] = launches.get(name, 0) + n
+
+
+def _count_transfer(name: str) -> None:
+    with _count_lock:
+        transfers[name] += 1
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -100,6 +114,9 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _dev_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An index vector uploaded on its own (counted): no kernel of the
+    swap path takes one any more, and the counter shows that."""
+    _count_transfer("index_upload")
     return torch.from_numpy(np.ascontiguousarray(idx)).to(device)
 
 
@@ -199,7 +216,8 @@ def launch_gather_nonzero(pool: torch.Tensor, idx: np.ndarray,
 
 def scatter_rows_(pool: torch.Tensor, idx, blocks: torch.Tensor) -> None:
     """``pool[idx[i]] = blocks[i]`` in place; rows not in ``idx`` are
-    never touched. Duplicate indices give an undefined result."""
+    never touched. Duplicate indices give an undefined result. On the
+    card: the verified scatter's plain mode, indices by value."""
     _check_rows("scatter_rows_", pool)
     _check_rows("scatter_rows_", blocks)
     cuda = _on_cuda("scatter_rows_", pool, blocks)
@@ -212,18 +230,167 @@ def scatter_rows_(pool: torch.Tensor, idx, blocks: torch.Tensor) -> None:
         ref.scatter_blocks_(pool, torch.from_numpy(idx), blocks)
         return
     if len(idx):
-        launch_scatter(pool, _dev_index(idx, pool.device), blocks)
+        launch_scatter(pool, idx, blocks)
 
 
-def launch_scatter(pool: torch.Tensor, idx_dev: torch.Tensor,
+def launch_scatter(pool: torch.Tensor, idx: np.ndarray,
                    blocks: torch.Tensor) -> None:
+    """One plain scatter on checked operands (contiguous uint8 rows)."""
+    _launch_scatter("scatter_rows_", "scatter", pool, blocks.data_ptr(),
+                    blocks.shape[0], idx)
+
+
+_NO_ROWS = np.zeros(0, dtype=np.int64)
+_BAD_INDEX = -1        # swap_scatter_verified's code for an index out of range
+
+
+def _launch_scatter(name: str, counter: str, pool: torch.Tensor, stage: int,
+                    n: int, dst, tags=None, zero=None, verdict: int = 0,
+                    upload: int = 0, host_verdict: int = 0) -> None:
+    """One call of ``swap_scatter_verified``: ``stage`` is the device
+    address of the ``n`` staged rows; ``dst``, ``tags`` (-1: none) and
+    ``zero`` are host vectors, passed by value and checked against the
+    pool there. ``upload``: the address of a pinned host copy of the rows,
+    uploaded to ``stage`` first on the same stream. ``verdict`` and
+    ``host_verdict``: device and pinned host addresses of one int32; with
+    ``host_verdict`` the call copies the verdict back and waits for the
+    stream, the one host wait."""
+    dst = np.ascontiguousarray(dst, dtype=np.int64)
+    if tags is not None:
+        tags = np.ascontiguousarray(tags, dtype=np.int64)
+    zero = _NO_ROWS if zero is None else np.ascontiguousarray(zero, dtype=np.int64)
+    if len(dst) != n or (tags is not None and len(tags) != n):
+        raise ValueError(f"{name}: {len(dst)} destinations and "
+                         f"{None if tags is None else len(tags)} tags for {n} rows")
+    launched = ctypes.c_int32(0)
     lib = _build.load()
-    with torch.cuda.device(pool.device):
-        rc = lib.swap_scatter_rows(pool.data_ptr(), idx_dev.data_ptr(),
-                                   blocks.data_ptr(), blocks.shape[0],
-                                   blocks.shape[1], _stream(pool))
-    _check_rc(lib, rc, "scatter_rows_")
-    _count("scatter")
+    with _on_device(pool.device):
+        rc = lib.swap_scatter_verified(
+            pool.data_ptr(), pool.shape[0], stage, n, pool.shape[1],
+            dst.ctypes.data, None if tags is None else tags.ctypes.data,
+            zero.ctypes.data, len(zero), verdict or None, upload or None,
+            host_verdict or None, _stream(pool), ctypes.addressof(launched))
+    _count(counter, launched.value)
+    if rc == _BAD_INDEX:
+        raise IndexError(f"{name}: index out of range for {pool.shape[0]} rows "
+                         f"(or a tag outside uint32)")
+    _check_rc(lib, rc, name)
+    if host_verdict:
+        _count_transfer("verdict_wait")
+
+
+def _on_device(device: torch.device):
+    """The device's context, entered only where it is not already the
+    current one (entering costs the hot path microseconds)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _verified_operands(name: str, pool: torch.Tensor, dst, tags, zero):
+    """The host vectors of a verified scatter on the CPU, checked as the
+    C entry point checks them on the card."""
+    dst = np.asarray(dst, dtype=np.int64).reshape(-1)
+    _host_index(name, dst[dst >= 0], pool.shape[0])
+    if (dst < -1).any():
+        raise IndexError(f"{name}: destination below -1")
+    tags = (np.full(len(dst), -1, np.int64) if tags is None
+            else np.asarray(tags, dtype=np.int64).reshape(-1))
+    if len(tags) != len(dst) or (tags < -1).any() or (tags >= 2 ** 32).any():
+        raise ValueError(f"{name}: tags must be {len(dst)} uint32 values or -1")
+    zero = _host_index(name, _NO_ROWS if zero is None else zero, pool.shape[0])
+    return dst, tags, zero
+
+
+def scatter_verified_rows_(pool: torch.Tensor, stage: torch.Tensor, dst,
+                           tags=None, zero=None) -> int:
+    """The swap-in's verified write: staged rows ``stage`` (R, elems),
+    each with a pool row (``dst``, -1: verify only) and an expected
+    Fletcher tag (``tags``, -1: none), and pool rows to zero. Writes the
+    pool only if every tag matches; returns -1 then, else the first
+    staged row whose tag differs (bit for bit
+    :func:`.ref.scatter_verified_blocks_`). On the card: one launch and
+    one wait for the 4-byte verdict (:func:`scatter_staged_rows_` does the
+    same from a staging buffer, with the upload in the same call)."""
+    name = "scatter_verified_rows_"
+    _check_rows(name, pool)
+    _check_rows(name, stage)
+    cuda = _on_cuda(name, pool, stage)
+    if stage.shape[1] != pool.shape[1] or stage.dtype != pool.dtype:
+        raise ValueError(f"{name}: staged rows {tuple(stage.shape)} "
+                         f"{stage.dtype} do not fit {tuple(pool.shape)} "
+                         f"{pool.dtype}")
+    if not cuda:
+        dst, tags, zero = _verified_operands(name, pool, dst, tags, zero)
+        if len(dst) != stage.shape[0]:
+            raise ValueError(f"{name}: {len(dst)} destinations for "
+                             f"{stage.shape[0]} rows")
+        return ref.scatter_verified_blocks_(
+            pool, stage, torch.from_numpy(dst), torch.from_numpy(tags),
+            torch.from_numpy(zero))
+    verdict = torch.empty(1, dtype=torch.int32, device=pool.device)
+    host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+    _launch_scatter(name, "scatter_verified", pool, stage.data_ptr(),
+                    stage.shape[0], dst, tags, zero, verdict=verdict.data_ptr(),
+                    host_verdict=host.data_ptr())
+    return int(host[0])
+
+
+def scatter_staged_rows_(pool: torch.Tensor, host: torch.Tensor,
+                         dev: "torch.Tensor | None", n: int, dst, tags=None,
+                         zero=None, *, verify: bool = True) -> int:
+    """The swap-in's write of one chunk from a staging pair: ``host`` is a
+    flat uint8 buffer whose head holds ``n`` staged rows of
+    ``pool.shape[1]`` bytes (pinned where the pool is on the card), ``dev``
+    a flat uint8 buffer on the pool's device at least as large (None on
+    the CPU). With ``verify``, as :func:`scatter_verified_rows_`, the
+    verdict passing through the 16 bytes after the rows (rounded up to 16)
+    of both buffers: on the card one call uploads the rows, launches the
+    verified scatter, copies the verdict back and waits -- one host wait.
+    Without it the plain scatter (no tags, no zero rows, no wait; the
+    caller keeps ``host`` until the upload has run)."""
+    name = "scatter_staged_rows_"
+    _check_rows(name, pool)
+    elems = pool.shape[1]
+    voff = -(-n * elems // 16) * 16
+    need = voff + 16 if verify else n * elems
+    if (host.dim() != 1 or host.dtype != torch.uint8 or host.numel() < need
+            or not host.is_contiguous()):
+        raise ValueError(f"{name}: the host buffer must be a contiguous flat "
+                         f"uint8 tensor of at least {need} bytes")
+    if not verify and (tags is not None or zero is not None):
+        raise ValueError(f"{name}: the plain scatter takes no tags or zero rows")
+    if pool.device.type == "cpu":
+        rows = host[:n * elems].view(n, elems)
+        if verify:
+            return scatter_verified_rows_(pool, rows, dst, tags, zero)
+        scatter_rows_(pool, dst, rows)
+        return -1
+    if not (host.is_pinned() and dev is not None and dev.device == pool.device
+            and dev.dtype == torch.uint8 and dev.numel() >= need):
+        raise ValueError(f"{name}: needs a pinned host buffer and a uint8 "
+                         f"buffer of at least {need} bytes on {pool.device}")
+    if pool.dtype != torch.uint8:
+        raise TypeError(f"{name}: the CUDA kernel takes uint8 rows, got {pool.dtype}")
+    if verify:
+        _launch_scatter(name, "scatter_verified", pool, dev.data_ptr(), n, dst,
+                        tags, zero, verdict=dev.data_ptr() + voff,
+                        upload=host.data_ptr(), host_verdict=host.data_ptr() + voff)
+        return int(host.numpy()[voff:voff + 4].view(np.int32)[0])
+    _launch_scatter(name, "scatter", pool, dev.data_ptr(), n, dst,
+                    upload=host.data_ptr())
+    return -1
+
+
+def launch_scatter_verified(pool: torch.Tensor, stage: torch.Tensor,
+                            dst: np.ndarray, tags: np.ndarray,
+                            zero: np.ndarray, verdict: torch.Tensor) -> None:
+    """One verified scatter on checked device operands, without a wait:
+    ``verdict``, one device int32, holds -1 (ok) or the first bad staged
+    row once it has run."""
+    _launch_scatter("scatter_verified_rows_", "scatter_verified", pool,
+                    stage.data_ptr(), stage.shape[0], dst, tags, zero,
+                    verdict=verdict.data_ptr())
 
 
 def zero_rows(blocks: torch.Tensor) -> torch.Tensor:
@@ -401,7 +568,8 @@ def block_quantize(blocks: torch.Tensor, mps_per_block: int):
 def launch_quantize(blocks: torch.Tensor, q: torch.Tensor,
                     scales: torch.Tensor) -> None:
     """One quantize launch on already-checked device operands: one
-    thread block per MP of ``blocks.numel() // scales.numel()`` elements."""
+    thread block cluster per MP of ``blocks.numel() // scales.numel()``
+    elements."""
     lib = _build.load()
     with torch.cuda.device(blocks.device):
         rc = lib.quant_block_quantize(
@@ -454,10 +622,11 @@ def launch_dequantize(q: torch.Tensor, scales: torch.Tensor,
     _count("dequantize")
 
 
-__all__ = ["launches", "reset_launches", "copy_to_host", "gather_rows",
-           "gather_nonzero_rows", "scatter_rows_", "zero_rows",
-           "fletcher_rows", "launch_gather", "launch_gather_nonzero",
-           "launch_scatter",
+__all__ = ["launches", "transfers", "reset_launches", "copy_to_host",
+           "gather_rows", "gather_nonzero_rows", "scatter_rows_",
+           "scatter_verified_rows_", "zero_rows", "fletcher_rows",
+           "launch_gather", "launch_gather_nonzero", "launch_scatter",
+           "launch_scatter_verified", "scatter_staged_rows_",
            "launch_zero", "launch_fletcher", "paged_decode_attention",
            "launch_paged_attn", "ATTN_DTYPE_PAIRS", "attn_splits",
            "block_quantize", "launch_quantize", "block_dequantize",

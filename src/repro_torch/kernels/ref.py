@@ -103,6 +103,31 @@ def scatter_blocks_(pool: torch.Tensor, indices: torch.Tensor,
     pool.index_copy_(0, indices, blocks)
 
 
+def scatter_verified_blocks_(pool: torch.Tensor, stage: torch.Tensor,
+                             dst: torch.Tensor, tags: torch.Tensor,
+                             zero: torch.Tensor) -> int:
+    """The swap-in's verified write, in place, all or nothing.
+
+    stage: (R, elems) staged rows; dst: (R,) int64 pool row of each, -1
+    for a row that is only verified; tags: (R,) int64 expected Fletcher
+    tag of each, -1 for none; zero: (Z,) int64 pool rows to zero. If
+    every expected tag equals :func:`fletcher_checksum` of its row,
+    :func:`scatter_blocks_` writes the rows that have a destination, the
+    zero rows are zeroed, and -1 is returned; else nothing is written and
+    the first staged row whose tag differs is returned.
+    """
+    has = tags >= 0
+    if bool(has.any()):
+        got = fletcher_checksum(stage[has]).to(torch.int64)
+        bad = (got != tags[has]).nonzero()
+        if len(bad):
+            return int(has.nonzero()[int(bad[0, 0]), 0])
+    write = dst >= 0
+    scatter_blocks_(pool, dst[write], stage[write])
+    pool.index_fill_(0, zero, 0)
+    return -1
+
+
 def paged_decode_attention(q: torch.Tensor, kv_pool: torch.Tensor,
                            block_table: torch.Tensor,
                            kv_len: torch.Tensor) -> torch.Tensor:

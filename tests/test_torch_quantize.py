@@ -238,3 +238,39 @@ def test_cuda_kernels_at_the_kv_block_shape(cuda_device):
     g = torch.Generator(device="cpu").manual_seed(3)
     x = (torch.randn((4, 4_718_592), generator=g) * 4).bfloat16()
     _card_vs_plain(x.float().numpy(), 8, "bfloat16", cuda_device)
+
+
+# MPs against the quantize kernel's clusters (up to 16 blocks of at most
+# 72 KiB of an MP each where that covers it, held in shared memory up to
+# 112 KiB a block): (n, elems, mps) -- an MP that one block takes, one
+# that four take, one that sixteen take near the limit of shared memory
+# in 16-bit types (past it in f32), one too large for it in every type
+# (its blocks read it twice), odd lengths (blocks that start off a
+# 16-byte boundary)
+CLUSTER_CASES = {
+    "one_block": (3, 3 * 4096, 3),
+    "four_blocks": (2, 2 * 131072, 2),
+    "sixteen_blocks": (2, 2 * 800_000, 2),
+    "too_large": (1, 1 << 21, 1),
+    "odd_lengths": (2, 3 * 100_003, 3),
+    "odd_small": (5, 7 * 1001, 7),
+}
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_clusters_equal_plain(cuda_device):
+    for case in sorted(CLUSTER_CASES):
+        n, elems, mps = CLUSTER_CASES[case]
+        for dtype in DTYPES:
+            _card_vs_plain(_blocks(n, elems, mps, dtype, seed=1), mps, dtype,
+                           cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_all_zero_mps(cuda_device):
+    """Every MP zero: scale 1 and q 0 in each, whatever its cluster."""
+    x = np.zeros((2, 2 * 200_000), dtype=np.float32)
+    for dtype in DTYPES:
+        _card_vs_plain(x, 2, dtype, cuda_device)
+        q, s = ops.block_quantize(_torch(x, dtype).to(cuda_device), 2)
+        assert not q.any() and bool((s == 1).all())
