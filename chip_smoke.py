@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--managed-ms 16384] [--seed 0]
+    python3 chip_smoke.py [--managed-ms 2048] [--fleet-node-ms 256] [--seed 0]
 
 Phases, one after another, each fatal on failure (exit code 1), each
 freeing its device memory before the next:
@@ -45,7 +45,9 @@ freeing its device memory before the next:
                    through it, is hot-switched into Taiji; the swap engine
                    is installed (v1), swaps out through the entry table,
                    is hot-upgraded to v2 while the services fault, and v2
-                   reclaims; every MS checked byte for byte;
+                   reclaims (1024 / 256 / 1024 MSs at 4096 managed MSs or
+                   more, scaled down with fewer); every MS checked byte
+                   for byte;
 6. serve        -- qwen3-4b at full width (36 layers, d 2560, 32/8 heads,
                    vocab 151936; weights from ``--seed``, cast once to
                    bf16): 8 requests of 512 prompt tokens fed through
@@ -58,7 +60,22 @@ freeing its device memory before the next:
                    MS per 64-token block, frames in HBM) under pressure;
                    every block read back equal to its host mirror;
 9. elastic-serving -- the elastic-serving flow with that geometry: the
-                   swap engine hot-upgraded v1 -> v2 halfway, under load.
+                   swap engine hot-upgraded v1 -> v2 halfway, under load;
+10. expert-cache -- deepseek-moe-16b's routed experts at full width (one
+                   34.6 MB MS of 16 MPs per expert), 4 MoE layers of 64,
+                   HBM for half: 4 rounds of 8-token decode batches
+                   routed top-6 from a Zipf(1.2) popularity, dispatched
+                   layer by layer (swap in, pin, gather), the active
+                   experts written back updated every 2nd round, every
+                   expert read back bit for bit;
+11. fleet       -- 4 nodes of ``--fleet-node-ms`` managed 2 MiB MSs each
+                   in HBM, through ``repro_torch.benchmarks.fleet``: the
+                   paper trace (rolling hot-upgrade) and the chaos trace
+                   (kills, recoveries, live migrations, the remote-peer
+                   tier), each replayed twice to equal bytes; both
+                   captured workloads replayed twice; one small trace
+                   replayed on the CPU and on the card to equal bytes;
+                   killed nodes free their frames.
 
 The last two lines of standard output are the kernel table and the
 device line as JSON. No card, or no ``src/repro_torch`` beside this
@@ -158,12 +175,37 @@ QUANT_CARD_SHAPE, QUANT_CARD_MPS = (24, 4_718_592), 8
 
 # the hot-switch phase: MSs each service (one per PCPU) owns, of which
 # half are swapped out under it just before the upgrade; MSs swapped out
-# under v1, by a swapper thread across the upgrade, and reclaimed by v2
+# under v1, by a swapper thread across the upgrade, and reclaimed by v2,
+# at 4096 managed MSs or more; below that the three scale with the frames
+# (the guest's 50% elastic room must hold what v2's pressure allocates)
 SERVICE_MS = 8
 V1_SWAP_MS, UPGRADE_SWAP_MS, V2_RECLAIM_MS = 1024, 256, 1024
+HOT_SWITCH_FULL_MS = 4096
 # swapped MSs read back through the guest (the rest through export_ms),
 # the fault-latency sample after the switch
 FAULT_SAMPLE_MS = 256
+
+# the expert-cache phase: deepseek-moe-16b's routed experts at full width
+# (64 of (3, 2048, 1408) float32 a layer: w_gate, w_up, w_down^T) in 4 of
+# its 27 MoE layers, HBM for half of them; each round routes a decode
+# batch of 8 tokens top-6 per layer from a Zipf(1.2) popularity and
+# dispatches layer by layer; every 2nd round writes the active experts
+# back updated (2 update rounds of 4); the residency of each layer's 16
+# most-routed experts is reported against the rest. A round swaps ~45
+# experts out and in (23-24 s on the H100's host), so 4 rounds
+EXPERT_ARCH, EXPERT_LAYERS, EXPERT_ROUNDS = "deepseek-moe-16b", 4, 4
+EXPERT_TOKENS, EXPERT_ZIPF, EXPERT_UPDATE_EVERY, EXPERT_HOT = 8, 1.2, 2, 16
+# float32 weights compress to ~0.93 under zlib level 1, at ~30 MB/s a
+# host core: the expert cache's backend compresses each expert (one MS)
+# as 8 streams of 2 MPs on 8 host threads, not as one 34.6 MB stream
+EXPERT_EXTENT_ROWS, EXPERT_ZLIB_WORKERS = 2, 8
+# the fleet phase: 4 nodes of the paper's geometry in 2 failure domains,
+# each node's frames in HBM; the paper trace's and the chaos trace's fault
+# bursts and the chaos trace's live migrations
+FLEET_NODES, FLEET_PAPER_BURST, FLEET_CHAOS_BURST, FLEET_MIGRATIONS = 4, 20000, 6000, 8
+# device memory the chaos replays may leave allocated (their killed and
+# recovered nodes' frames must all be gone; one node's are 100s of MB)
+FLEET_KEPT_SLACK = 4 << 20
 
 
 def fail(msg: str) -> None:
@@ -282,22 +324,26 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
 
     results = {}
     # (label, n_pool, elems, rows): main-path shapes first, then ragged
-    # rows (4100 bytes: no 16-byte alignment) and one past the 65521 wrap
+    # rows (4100 bytes: no 16-byte alignment), one past the 65521 wrap and
+    # the expert cache's 2.06 MiB MP
     copy_shapes = [("main64", 512, 4096, 64), ("main13", 512, 4096, 13),
                    ("ragged", 37, 4100, 11)]
     row_shapes = [("main64", 64, 4096), ("main16", 16, 4096),
                   ("ragged", 16, 4100), ("wrap", 3, 70001), ("one", 4, 1),
-                  ("fifteen", 5, 15), ("odd", 3, 4097), ("2MiB", 1, 2 ** 21)]
+                  ("fifteen", 5, 15), ("odd", 3, 4097), ("2MiB", 1, 2 ** 21),
+                  ("expert_mp", 3, 2_162_688)]
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
     # the swap-out's compacting gather, bit for bit against gather_blocks +
     # zero_detect: (label, n_pool, elems, indices, every n-th pool row
     # zero; 1: all, 0: none) -- the main-path chunk and its edges, ragged
-    # rows, eight 1.125 MiB KV rows, a whole MS, more than one launch takes
+    # rows, eight 1.125 MiB KV rows, an expert's sixteen 2.06 MiB MPs, a
+    # whole MS, more than one launch takes
     compact_shapes = [("main64", 512, 4096, 64, 3), ("all_zero", 512, 4096, 64, 1),
                       ("none_zero", 512, 4096, 64, 0), ("one", 512, 4096, 1, 2),
                       ("main13", 512, 4096, 13, 3), ("ragged", 37, 4100, 11, 2),
-                      ("kv_rows", 8, 1_179_648, 8, 2), ("whole_ms", 512, 4096, 512, 3),
+                      ("kv_rows", 8, 1_179_648, 8, 2), ("expert_rows", 16, 2_162_688, 16, 2),
+                      ("whole_ms", 512, 4096, 512, 3),
                       ("split", 1024, 4096, 700, 2)]
     for label, n_pool, elems, k, zero_every in compact_shapes:
         pool, idx = rows(n_pool, elems, zero_every=zero_every), perm(n_pool, k)
@@ -354,7 +400,8 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
     # staged rows (every fourth verified only), their tags (every third
     # untagged), zero rows -- at the main-path chunk, a whole MS (more
     # rows than one launch takes), ragged rows, eight 1.125 MiB KV rows,
-    # zero rows only, and each with a tag spoiled (nothing written)
+    # an expert's sixteen 2.06 MiB MPs, zero rows only, and each with a
+    # tag spoiled (nothing written)
     def verified_case(n_pool, elems, k, z):
         pool, stage = rows(n_pool, elems), rows(k, elems, zero_every=5)
         perm_rows = perm(n_pool, n_pool)
@@ -368,6 +415,7 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
 
     verified_shapes = [("chunk64", 512, 4096, 64, 16), ("whole_ms", 1024, 4096, 512, 300),
                        ("ragged", 37, 4100, 11, 4), ("kv_rows", 16, 1_179_648, 8, 2),
+                       ("expert_rows", 32, 2_162_688, 16, 4),
                        ("zero_only", 512, 4096, 0, 64)]
     cases = []
     for label, n_pool, elems, k, z in verified_shapes:
@@ -1430,9 +1478,11 @@ def hot_switch_phase(torch, np, core, ops, managed: int, seed: int, smi: str):
         core.install_module(system, entry, core.EngineModule(system))
         out.update(attach_v1_s=time.perf_counter() - t0, records_v1=len(system.reqs))
         m = system.metrics
+        scale = min(1.0, managed / HOT_SWITCH_FULL_MS)
+        n_v1, n_up = int(V1_SWAP_MS * scale), int(UPGRADE_SWAP_MS * scale)
         order = rng.permutation(len(rest))
-        v1_set = [rest[i] for i in order[:V1_SWAP_MS]]
-        up_set = [rest[i] for i in order[V1_SWAP_MS:V1_SWAP_MS + UPGRADE_SWAP_MS]]
+        v1_set = [rest[i] for i in order[:n_v1]]
+        up_set = [rest[i] for i in order[n_v1:n_v1 + n_up]]
         mp0, t0 = m.mp_swapped_out, time.perf_counter()
         for g in v1_set:
             entry.call("swap_out_ms", g)
@@ -1468,7 +1518,7 @@ def hot_switch_phase(torch, np, core, ops, managed: int, seed: int, smi: str):
         th = threading.Thread(target=swapper, daemon=True)
         th.start()
         deadline = time.perf_counter() + 120
-        while len(swap_log) < UPGRADE_SWAP_MS // 4 and th.is_alive():
+        while len(swap_log) < n_up // 4 and th.is_alive():
             if time.perf_counter() > deadline:
                 fail("hot-switch: the swapper thread made no progress")
             time.sleep(0.005)
@@ -1489,9 +1539,9 @@ def hot_switch_phase(torch, np, core, ops, managed: int, seed: int, smi: str):
         core.hot_upgrade(system, entry, module)
         t_up1 = time.perf_counter_ns()
         th.join(timeout=300)
-        if th.is_alive() or len(swap_log) != UPGRADE_SWAP_MS:
+        if th.is_alive() or len(swap_log) != n_up:
             fail(f"hot-switch: the swapper thread swapped {len(swap_log)} of "
-                 f"{UPGRADE_SWAP_MS} MSs")
+                 f"{n_up} MSs")
         v1 = [r for r in swap_log if r[1] <= t_up1]
         v2 = [r for r in swap_log if r[0] >= t_up1]
 
@@ -1520,11 +1570,19 @@ def hot_switch_phase(torch, np, core, ops, managed: int, seed: int, smi: str):
         # low watermark. The services' MSs are pinned, as the reference's
         # lock-free access path races a swap-out of the MS it writes
         # (ROADMAP Queue C)
+        # (each reclaimed MS is allocated again at most once, so v2
+        # reclaims no more than the guest can allocate past the watermark)
         added = {}
+        room = len(system._free_gfns) - (system.phys.free_count - system.watermark.low_ms)
+        n_v2 = min(int(V2_RECLAIM_MS * scale), room - SERVICE_MS * n_pcpu)
+        if n_v2 < 1:
+            fail(f"hot-switch: no room for v2 to reclaim ({room} MSs to allocate)")
+        out.update(v1_swap_ms=n_v1, upgrade_swap_ms=n_up, v2_room_ms=room,
+                   v2_reclaim_target_ms=n_v2)
         with system.guest.pin([p for ms in svc for p in ms]):
             ms0, mp0, rounds, scan_s, dt = m.ms_swapped_out, m.mp_swapped_out, 0, 0.0, 0.0
             n = 0
-            while m.ms_swapped_out - ms0 < V2_RECLAIM_MS:
+            while m.ms_swapped_out - ms0 < n_v2:
                 while n == 0 and system.phys.free_count >= system.watermark.low_ms:
                     g = system.guest.alloc_ms()
                     added[g] = int(rng.integers(N_IMAGES))
@@ -1539,7 +1597,8 @@ def hot_switch_phase(torch, np, core, ops, managed: int, seed: int, smi: str):
                 if rounds > 20_000:
                     fail(f"hot-switch: v2 reclaimed {m.ms_swapped_out - ms0} MSs "
                          f"in {rounds} rounds")
-        out.update(allocated_after_switch=len(added), v2_reclaim_rounds=rounds,
+        out.update(allocated_after_switch=len(added), v2_room_left_ms=len(system._free_gfns),
+                   v2_reclaim_rounds=rounds,
                    v2_reclaim_ms=m.ms_swapped_out - ms0, v2_reclaim_s=dt,
                    v2_lru_scan_s=scan_s,
                    v2_reclaim_mp_per_s=(m.mp_swapped_out - mp0) / dt)
@@ -1849,11 +1908,283 @@ def elastic_serving(torch, ops, seed: int) -> dict:
     return out
 
 
+def expert_cache_phase(torch, np, core, ops, seed: int) -> dict:
+    """Phase 10: the elastic expert cache at deepseek-moe-16b's full expert
+    width. One ElasticExpertCache per MoE layer over one GuestSpace whose
+    frames hold half the experts; each round routes every layer (note
+    the routing, swap in and pin its active set, gather it) and checks
+    every gathered expert bit for bit against the weights last put, then
+    reads one random expert unpinned (a swapped one faults back in) and
+    steps the background (LRU aging, reclaim)."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import BackendConfig, HotPathConfig, SwapConfig
+    from repro_torch.core.virt import NO_PFN
+
+    arch = get_config(EXPERT_ARCH)
+    moe = arch.moe
+    shape = (3, arch.d_model, moe.d_ff_expert)   # w_gate, w_up, w_down^T
+    dtype = np.dtype(arch.param_dtype)
+    n_exp, top_k, n_layers = moe.n_routed, moe.top_k, EXPERT_LAYERS
+    n_all = n_layers * n_exp
+    expert_bytes = int(np.prod(shape)) * dtype.itemsize
+    cfg = core.make_expert_taiji_config(
+        expert_bytes, n_all // 2, n_all,
+        backend=BackendConfig(extent_max_rows=EXPERT_EXTENT_ROWS),
+        swap=SwapConfig(hot_path=HotPathConfig(compress_workers=EXPERT_ZLIB_WORKERS)))
+    workers = ThreadPoolExecutor(8)
+
+    def draw(key, scale):
+        x = np.random.default_rng(key).standard_normal(shape, dtype=np.float32)
+        x *= scale
+        return x.astype(dtype, copy=False)
+
+    def same(got, want) -> bool:
+        return np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+    t0 = time.perf_counter()
+    weights = [list(workers.map(lambda e, layer=layer: draw([seed, layer, e], 0.02),
+                                range(n_exp))) for layer in range(n_layers)]
+    gen_s = time.perf_counter() - t0
+    # what the backend's zlib does with such weights, on the host
+    mp = weights[0][0].reshape(-1).view(np.uint8)[: cfg.mp_bytes].tobytes()
+    t0 = time.perf_counter()
+    blob = zlib.compress(mp, cfg.backend.compression_level)
+    zlib_s = time.perf_counter() - t0
+    rng = np.random.default_rng([seed, 1])
+    ranks = 1.0 / np.arange(1, n_exp + 1) ** EXPERT_ZIPF
+    pops = []
+    for _ in range(n_layers):                   # a popularity order per layer
+        p = np.empty(n_exp)
+        p[rng.permutation(n_exp)] = ranks / ranks.sum()
+        pops.append(p)
+    log(f"expert-cache: {EXPERT_ARCH} x {n_layers} MoE layers, {n_all} experts "
+        f"of {shape} {dtype} ({expert_bytes} B, {cfg.mps_per_ms} MPs of "
+        f"{cfg.mp_bytes} B), {cfg.n_phys_ms - cfg.mpool_reserve_ms} in HBM; "
+        f"weights drawn in {gen_s:.1f} s")
+
+    s = core.TaijiSystem(cfg, device="cuda")
+    try:
+        space = s.guest
+        caches = [core.ElasticExpertCache(space, n_exp, shape, dtype)
+                  for _ in range(n_layers)]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for layer, cache in enumerate(caches):
+            for e, w in enumerate(weights[layer]):
+                cache.put_expert(e, w)
+        torch.cuda.synchronize()
+        put_s = time.perf_counter() - t0
+        dispatch_ms, n_active, mismatches = [], [], 0
+        t0 = time.perf_counter()
+        try:
+            for r in range(EXPERT_ROUNDS):
+                for layer, cache in enumerate(caches):
+                    active = sorted({int(e) for _ in range(EXPERT_TOKENS)
+                                     for e in rng.choice(n_exp, top_k, replace=False,
+                                                         p=pops[layer])})
+                    cache.note_routing(active)
+                    t1 = time.perf_counter()
+                    with cache.prepare_dispatch(active):
+                        got = cache.get_experts(active)
+                        dispatch_ms.append((time.perf_counter() - t1) * 1e3)
+                    n_active.append(len(active))
+                    mismatches += sum(not same(got[i], weights[layer][e])
+                                      for i, e in enumerate(active))
+                    del got
+                    if r % EXPERT_UPDATE_EVERY == EXPERT_UPDATE_EVERY - 1:
+                        new = list(workers.map(
+                            lambda e, layer=layer, r=r: weights[layer][e]
+                            + draw([seed, layer, e, r], 0.01), active))
+                        for e, w in zip(active, new):
+                            weights[layer][e] = w
+                            cache.put_expert(e, w)
+                # one expert read unpinned: its swapped MPs fault back in
+                layer, e = int(rng.integers(n_layers)), int(rng.integers(n_exp))
+                mismatches += not same(caches[layer].get_expert(e), weights[layer][e])
+                space.step_background(2)
+                if (r + 1) % EXPERT_UPDATE_EVERY == 0:
+                    log(f"expert-cache: round {r + 1}/{EXPERT_ROUNDS} at "
+                        f"{time.perf_counter() - t0:.1f} s, {s.metrics.ms_swapped_out} "
+                        f"experts out, {s.metrics.ms_swapped_in} in")
+        except core.PinnedError as exc:
+            fail(f"expert-cache: {exc}")
+        torch.cuda.synchronize()
+        rounds_s = time.perf_counter() - t0
+        launches = {k: ops.launches.get(k, 0) for k in SWAP_COUNTERS}
+        m = s.stats()["metrics"]
+        hot_res, cold_res = [], []
+        for cache in caches:
+            order = np.argsort(-cache.route_counts, kind="stable")
+            res = [int(s.virt.table.pfn[cache._view_of(int(e)).gfn]) != NO_PFN
+                   for e in order]
+            hot_res += res[:EXPERT_HOT]
+            cold_res += res[EXPERT_HOT:]
+    finally:
+        s.close()
+        workers.shutdown()
+    if mismatches:
+        fail(f"expert-cache: {mismatches} experts read back different from "
+             f"the weights last put")
+    if m["crc_failures"]:
+        fail(f"expert-cache: {m['crc_failures']} CRC failures")
+    if m["ms_swapped_out"] <= 0 or m["ms_swapped_in"] <= 0:
+        fail("expert-cache: no expert was swapped out and back in")
+    check_swap_launches("expert-cache", launches, SWAP_OUT_IN + ("scatter_verified",))
+    out = {
+        "arch": EXPERT_ARCH, "layers": n_layers, "experts": n_all,
+        "expert_shape": list(shape), "dtype": str(dtype), "expert_bytes": expert_bytes,
+        "mps_per_expert": cfg.mps_per_ms, "mp_bytes": cfg.mp_bytes,
+        "experts_in_hbm": cfg.n_phys_ms - cfg.mpool_reserve_ms,
+        "rounds": EXPERT_ROUNDS, "update_every": EXPERT_UPDATE_EVERY,
+        "update_rounds": EXPERT_ROUNDS // EXPERT_UPDATE_EVERY,
+        "backend": {"extent_max_rows": EXPERT_EXTENT_ROWS,
+                    "compress_workers": EXPERT_ZLIB_WORKERS},
+        "tokens": EXPERT_TOKENS, "top_k": top_k,
+        "active_per_layer_mean": float(np.mean(n_active)),
+        "weights_drawn_s": gen_s, "put_s": put_s, "rounds_s": rounds_s,
+        "dispatch_ms": {"median": float(np.median(dispatch_ms)),
+                        "p90": float(np.percentile(dispatch_ms, 90)),
+                        "n": len(dispatch_ms)},
+        "experts_read_bit_exact": sum(n_active) + EXPERT_ROUNDS,
+        "experts_swapped_out": m["ms_swapped_out"], "experts_swapped_in": m["ms_swapped_in"],
+        "mp_swapped_out": m["mp_swapped_out"], "mp_swapped_in": m["mp_swapped_in"],
+        "faults": m["faults"], "compression_ratio": m["compression_ratio"],
+        "crc_failures": m["crc_failures"],
+        "resident_share_hot16": float(np.mean(hot_res)),
+        "resident_share_rest": float(np.mean(cold_res)),
+        "host_zlib_one_mp": {"level": cfg.backend.compression_level,
+                             "ratio": len(blob) / len(mp),
+                             "mb_per_s": len(mp) / zlib_s / 1e6},
+        "launches": launches}
+    log(json.dumps({"expert_cache": out}))
+    del weights
+    free_device(torch)
+    return out
+
+
+def dead_node_frames(torch, cfg) -> dict:
+    """A killed node holds no frames on the card, and its recovery boots
+    one set: device memory after a kill and a recovery of each of two
+    nodes of a 4-node fleet, against one node's frames."""
+    import gc
+
+    from repro_torch.fleet.harness import build_fleet
+
+    frames = cfg.n_phys_ms * cfg.ms_bytes
+    fleet = build_fleet(FLEET_NODES, 2, cfg, device="cuda")
+    try:
+        steps = []
+        for victim in (1, 2):
+            before = torch.cuda.memory_allocated()
+            fleet.kill_node(victim)
+            killed = torch.cuda.memory_allocated()
+            fleet.recover_node(victim)
+            gc.collect()
+            steps.append({"node": victim, "freed_by_kill": before - killed,
+                          "after_recovery": torch.cuda.memory_allocated() - before})
+    finally:
+        fleet.close()
+    for st in steps:
+        if st["freed_by_kill"] < frames or st["after_recovery"] > 0:
+            fail(f"fleet: a killed node kept its frames ({st}, {frames} B a node)")
+    return {"frames_per_node": frames, "kill_recover": steps}
+
+
+def fleet_phase(torch, np, ops, node_ms: int, seed: int) -> dict:
+    """Phase 11: the fleet control plane through the port's
+    ``benchmarks/fleet.py``, 4 nodes of the paper's 2 MiB / 4 KiB
+    geometry in 2 failure domains, each node's frames in HBM: the paper
+    trace and the chaos trace (remote-peer tier on) each replayed twice,
+    both captured workloads replayed twice on 2 nodes, and a paper trace
+    at the small test size replayed on the CPU and on the card."""
+    import gc
+
+    from repro_torch.benchmarks import fleet as bench
+    from repro_torch.core.config import small_test_config
+    from repro_torch.fleet import paper_trace
+    from repro_torch.fleet.harness import first_divergence, replay
+
+    cfg, reserve = swap_config(node_ms)
+    log(f"fleet: {FLEET_NODES} nodes x {node_ms} managed MSs (+{reserve} "
+        f"reserved) of {cfg.ms_bytes} B, {cfg.mps_per_ms} MPs each, frames in "
+        f"HBM ({FLEET_NODES * cfg.n_phys_ms * cfg.ms_bytes / 2**30:.2f} GiB)")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    paper = bench.run(verbose=False, device="cuda", cfg=cfg, burst=FLEET_PAPER_BURST)
+    log(f"fleet: paper trace, {paper['trace_ops']} ops, replayed twice in "
+        f"{paper['replay_s']:.1f} s")
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    chaos = bench.run_chaos(verbose=False, device="cuda", cfg=cfg,
+                            burst=FLEET_CHAOS_BURST, migrations=FLEET_MIGRATIONS)
+    gc.collect()
+    kept = torch.cuda.memory_allocated() - base
+    log(f"fleet: chaos trace, {chaos['trace_ops']} ops, replayed twice in "
+        f"{chaos['replay_s']:.1f} s; device memory kept after it {kept} B")
+    cap = bench.run_capture(verbose=False, device="cuda")
+    launches = {k: ops.launches.get(k, 0) for k in SWAP_COUNTERS}
+    small = small_test_config()
+    lines = paper_trace(seed, small.ms_bytes, small.mps_per_ms, fill_ms=120,
+                        burst=600, churn_frees=20).lines()
+    on_cpu = replay(lines, cfg=small, device="cpu")
+    on_card = replay(lines, cfg=small, device="cuda")
+    cross = first_divergence(on_cpu.bytes, on_card.bytes)
+    dead = dead_node_frames(torch, cfg)
+    dt = time.perf_counter() - t0
+
+    for name, r in (("paper", paper), ("chaos", chaos), ("capture", cap)):
+        if r["deterministic"] != 1.0:
+            fail(f"fleet: {name} replays differ: {r.get('divergence')}")
+        if r["verify_failures"]:
+            fail(f"fleet: {name}: {r['verify_failures']} verify failures")
+    if paper["upgrade_batches_done"] < 1 or paper["upgrade_aborted"]:
+        fail(f"fleet: rolling upgrade: {paper['upgrade_batches_done']} batches, "
+             f"aborted {paper['upgrade_aborted']}")
+    if chaos["kills"] != 2 or chaos["recovers"] != 2 or chaos["migrations"] < 1:
+        fail(f"fleet: chaos: {chaos['kills']} kills, {chaos['recovers']} "
+             f"recoveries, {chaos['migrations']} migrations")
+    if chaos["remote_puts"] < 1:
+        fail("fleet: chaos: the remote-peer tier placed no replica")
+    if cross is not None:
+        fail(f"fleet: the card's replay differs from the CPU's: {cross}")
+    if kept > FLEET_KEPT_SLACK:
+        fail(f"fleet: {kept} B of device memory kept after the chaos replays")
+    check_swap_launches("fleet", launches, SWAP_OUT_IN + ("scatter_verified",))
+    out = {
+        "nodes": FLEET_NODES, "domains": 2, "node_managed_ms": node_ms,
+        "ms_bytes": cfg.ms_bytes, "mps_per_ms": cfg.mps_per_ms, "seconds": dt,
+        "paper": {k: paper[k] for k in (
+            "trace_ops", "replay_s", "admitted", "rejected_overcommit",
+            "reclaimed_mps", "upgrade_batches_done", "verify_failures", "faults",
+            "swap_in_p50_us", "swap_in_p90_us", "swap_in_p99_us",
+            "frac_under_10us", "fault_mean_us", "stage_us")},
+        "chaos": {k: chaos[k] for k in (
+            "trace_ops", "replay_s", "kills", "recovers", "migrations",
+            "migration_mps", "ms_replaced", "ms_lost", "verify_failures",
+            "remote_puts", "remote_recovered", "remote_rereplicated",
+            "remote_dropped", "remote_evicted", "remote_held")},
+        "capture": {k: cap[k] for k in (
+            "trace_ops", "replay_s", "payload_writes", "payload_reads",
+            "verify_failures", "kv_serving_ops", "expert_churn_ops")},
+        "cross_device": {"trace_ops": len(lines) - 1, "equal": cross is None},
+        "device_memory_kept_after_chaos": kept, "dead_nodes": dead,
+        "launches": launches}
+    log(json.dumps({"fleet": out}))
+    free_device(torch)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--managed-ms", type=int, default=16384,
+    ap.add_argument("--managed-ms", type=int, default=2048,
                     help="managed 2 MiB MSs of guest frames in HBM "
                          "(16384 = the paper's 32 GiB)")
+    ap.add_argument("--fleet-node-ms", type=int, default=256,
+                    help="managed 2 MiB MSs of each of the fleet phase's 4 "
+                         "nodes (the paper's node holds 16384)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-sources", type=Path, default=None,
                     help="a directory with earlier swap_kernels.cu, "
@@ -1915,6 +2246,12 @@ def main() -> int:
     serve_parity(torch, ops, args.seed)
     elastic_kv(torch, ops, args.seed)
     elastic_serving(torch, ops, args.seed)
+
+    # 10. expert cache, 11. fleet: their launches join the main paths'
+    for phase in (expert_cache_phase(torch, np, core, ops, args.seed),
+                  fleet_phase(torch, np, ops, args.fleet_node_ms, args.seed)):
+        for k, n in phase["launches"].items():
+            launches[k] = launches.get(k, 0) + n
 
     rows = []
     for name, (counter, replaces, source, path) in KERNELS.items():

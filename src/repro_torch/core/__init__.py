@@ -7,8 +7,7 @@ Layering (bottom up), as in ``repro.core``:
   -> system (facade) -> hotswitch / hotupgrade -> dma
   -> guest (GuestSpace: the one sanctioned guest-memory surface)
   -> elastic_kv (ElasticKVCache: Taiji under a serving node's KV cache)
-
-Not ported yet: elastic_params.
+  -> elastic_params (ElasticExpertCache: Taiji under MoE expert weights)
 """
 from .config import (ABI_VERSION, BackendConfig, LRUConfig, SchedulerConfig,
                      TaijiConfig, WatermarkConfig, small_test_config)
@@ -16,6 +15,7 @@ from .errors import (ABIMismatchError, CorruptionError, InvalidStateError,
                      MpoolExhaustedError, OutOfMemoryError, PinnedError,
                      TaijiError)
 from .elastic_kv import ElasticKVCache, KVGeometry, make_kv_taiji_config
+from .elastic_params import ElasticExpertCache, make_expert_taiji_config
 from .guest import GuestObserver, GuestSpace, MSView
 from .system import TaijiSystem, import_images
 from .hotswitch import PlainMemorySystem, hot_switch
@@ -30,4 +30,5 @@ __all__ = [
     "TaijiSystem", "import_images", "PlainMemorySystem", "hot_switch",
     "EntryOps", "EngineModule", "EngineModuleV2", "install_module", "hot_upgrade",
     "ElasticKVCache", "KVGeometry", "make_kv_taiji_config",
+    "ElasticExpertCache", "make_expert_taiji_config",
 ]

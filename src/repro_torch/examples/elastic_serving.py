@@ -10,18 +10,18 @@ contract). Halfway through, the swap engine is HOT-UPGRADED v1 -> v2
 under load -- serving never stops (paper §4.4).
 
 All guest memory flows through the system's GuestSpace (the sanctioned
-surface), whose frames live on ``device`` (the card's HBM by default).
+surface), whose frames live on ``device`` (the card's HBM by default);
+pass ``--capture trace.tsv`` to attach a TraceRecorder and write the
+serving workload as a replayable fleet trace.
 
 Port of ``examples/elastic_serving.py``: the loop is :func:`run`, which
 takes the model config, the physical KV blocks and the device and returns
-the system's stats, so that a caller can drive it at full width. The
-reference's ``--capture PATH`` flag is left out: it attaches the fleet's
-``TraceRecorder``, which the port does not have yet.
+the system's stats, so that a caller can drive it at full width.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -34,13 +34,15 @@ from ..models import model as M
 
 
 def run(cfg, *, phys_blocks: int, device=None, turns: int = 40,
-        seed: int = 0) -> Dict[str, object]:
+        seed: int = 0, capture: Optional[str] = None) -> Dict[str, object]:
     """Serve ``turns`` turns of 4 of 24 sequences over ``phys_blocks``
     physical KV blocks of ``cfg``'s geometry, hot-upgrading the swap
     engine at turn ``turns // 2``. ``device`` holds the guest frames
-    (``None``: the card). Returns ``system.stats()`` plus the cache's
+    (``None``: the card); ``capture`` is a path to write the workload to
+    as a fleet trace. Returns ``system.stats()`` plus the cache's
     ``residency``, the module version the entry table serves
-    (``entry_version``) and the ``upgrade_turn``."""
+    (``entry_version``), the ``upgrade_turn`` and, with ``capture``, the
+    trace's ops (``captured_ops``)."""
     n_seqs, batch = 24, 4
     prompt, gen = 24, 8
     geom = KVGeometry(n_layers=M.attn_layer_count(cfg),
@@ -54,6 +56,10 @@ def run(cfg, *, phys_blocks: int, device=None, turns: int = 40,
     system = TaijiSystem(tcfg, device=device)
     try:
         space = system.guest                     # the one guest-memory surface
+        recorder = None
+        if capture:
+            from ..fleet.trace import TraceRecorder
+            recorder = space.attach(TraceRecorder.for_space(space))
         system.start_background()
         cache = ElasticKVCache(geom, space)
 
@@ -106,14 +112,23 @@ def run(cfg, *, phys_blocks: int, device=None, turns: int = 40,
         print("\nfault latency:", st["fault_latency"])
         print(f"swapped out {st['ms_swapped_out']} MSes; compression ratio "
               f"{st['compression_ratio']:.3f}; module v{stats['entry_version']}")
+        if recorder is not None:
+            recorder.write(capture)
+            stats["captured_ops"] = recorder.n_ops
+            print(f"captured {recorder.n_ops} trace ops -> {capture} "
+                  f"(replay with repro_torch.fleet.harness.replay)")
         return stats
     finally:
         system.close()
 
 
 def main() -> None:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
-    run(reduced_config("qwen3-4b"), phys_blocks=48)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--capture", metavar="PATH", default=None,
+                    help="record the serving workload as a replayable "
+                         "fleet trace (TSV) at PATH")
+    args = ap.parse_args()
+    run(reduced_config("qwen3-4b"), phys_blocks=48, capture=args.capture)
 
 
 if __name__ == "__main__":

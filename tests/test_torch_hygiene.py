@@ -48,7 +48,11 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.models.model, repro_torch.launch.serve, "
             "repro_torch.core.elastic_kv, repro_torch.train.steps, "
             "repro_torch.core.hotswitch, repro_torch.core.hotupgrade, "
-            "repro_torch.examples.elastic_serving; "
+            "repro_torch.examples.elastic_serving, "
+            "repro_torch.core.elastic_params, repro_torch.fleet, "
+            "repro_torch.fleet.trace, repro_torch.fleet.node, "
+            "repro_torch.fleet.controller, repro_torch.fleet.harness, "
+            "repro_torch.fleet.capture, repro_torch.benchmarks.fleet; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
