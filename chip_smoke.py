@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--managed-ms 2048] [--fleet-node-ms 256] [--seed 0]
+    python3 chip_smoke.py [--managed-ms 2048] [--fleet-node-ms 256]
+                          [--bench-ms 1024] [--seed 0]
 
 Phases, one after another, each fatal on failure (exit code 1), each
 freeing its device memory before the next:
@@ -52,7 +53,8 @@ freeing its device memory before the next:
                    vocab 151936; weights from ``--seed``, cast once to
                    bf16): 8 requests of 512 prompt tokens fed through
                    ``serve_step``, then 64 greedy tokens; every attention
-                   layer of every step must launch the paged kernel;
+                   layer of every step must launch the paged kernel; then,
+                   on the same model, phase 12's decode overhead;
 7. serve-parity -- reduced qwen3-4b, the same parameters and tokens
                    decoded on the card (kernel) and on the CPU (plain
                    version);
@@ -75,16 +77,32 @@ freeing its device memory before the next:
                    tier), each replayed twice to equal bytes; both
                    captured workloads replayed twice; one small trace
                    replayed on the CPU and on the card to equal bytes;
-                   killed nodes free their frames.
+                   killed nodes free their frames;
+12. bench       -- the paper's benchmarks through ``repro_torch.
+                   benchmarks`` at the paper's geometry in HBM: fault
+                   latency by the paper's method over ``--bench-ms`` MSs
+                   and its scalar reference, the extent sweep, swap
+                   throughput, the slot allocator at 128 / 256 / 2048 MSs,
+                   LRU accuracy, metadata, overcommit and the backend
+                   mix, with the decode overhead of phase 6; every
+                   swapping module must launch the compacting gather and
+                   Fletcher and no zero scan, elasticity >= 0.5, the
+                   backend's zero share within 0.02 of the workload's,
+                   and metadata, backend_ratio and lru_accuracy at the
+                   reference's sizes equal on the CPU and the card; prints
+                   every row beside the paper's figure.
 
 The last two lines of standard output are the kernel table and the
-device line as JSON. No card, or no ``src/repro_torch`` beside this
-file: a non-zero exit and no result.
+device line as JSON; the ``{"bench": ...}`` line comes before them. No
+card, or no ``src/repro_torch`` beside this file: a non-zero exit and no
+result.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import re
 import subprocess
 import sys
 import threading
@@ -206,6 +224,30 @@ FLEET_NODES, FLEET_PAPER_BURST, FLEET_CHAOS_BURST, FLEET_MIGRATIONS = 4, 20000, 
 # device memory the chaos replays may leave allocated (their killed and
 # recovered nodes' frames must all be gone; one node's are 100s of MB)
 FLEET_KEPT_SLACK = 4 << 20
+# the bench phase: the port's benchmark modules at the paper's geometry
+# (2 MiB MSs of 512 x 4 KiB, frames in HBM). Managed MSs of the fault
+# latency and LRU accuracy runs (``--bench-ms``), of the extent sweep, of
+# swap_throughput (its 16 MSs and 4 spare, as the reference's), of the
+# slot allocator (the fleet's node sizes and the main path's) and of the
+# figure benchmarks; faults a window and in the scalar reference run
+BENCH_MS, BENCH_SWEEP_MS, BENCH_THROUGHPUT_MS = 1024, 32, 20
+BENCH_SLOT_MS, BENCH_FIGURE_MS = (128, 256, 2048), 256
+BENCH_FAULTS, BENCH_REF_FAULTS = 3000, 1000
+# MSs of paper-mix data drawn to time the workload generator
+BENCH_MIX_MS = 32
+# the decode overhead: the serve phase's model at batch 4 (the module's),
+# native/elastic pairs and traced pairs of 30-step windows, each elastic
+# window's manager with 512 managed MSs
+OVERHEAD_PAIRS, OVERHEAD_TRACED_PAIRS, OVERHEAD_ITERS = 8, 6, 30
+OVERHEAD_MANAGER_MS = 512
+# the backend mix may stray this far from the workload's zero fraction
+BENCH_ZERO_TOL = 0.02
+# the paper's figure of a row, as its ``derived`` string carries it
+# ("paper=0.7679", "paper_target<10us_p90"); the figures a row's
+# ``derived`` lacks, or rounds ("paper~0.47"), are given here
+PAPER_IN_DERIVED = re.compile(r"paper(?:_target)?[<>=~][^_]*(?:_p\d+)?")
+PAPER_NOT_IN_ROWS = {"lru_cold_ratio": "paper=0.5279",
+                     "mpool_utilization": "paper=0.4669"}
 
 
 def fail(msg: str) -> None:
@@ -1685,8 +1727,9 @@ def _device_times(torch, prof) -> tuple:
     return (total, attn, top) if total > 0 else (None, None, [])
 
 
-def serve_path(torch, ops, seed: int) -> dict:
-    """Phase 5: qwen3-4b decode at full width through ``serve_step``."""
+def serve_path(torch, ops, seed: int) -> tuple:
+    """Phase 6: qwen3-4b decode at full width through ``serve_step``;
+    returns the result and the model (bf16, on the card)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.train.steps import serve_step
@@ -1790,9 +1833,9 @@ def serve_path(torch, ops, seed: int) -> dict:
         f"a byte bound of {bound_ms:.3f} ms; {launches} paged-attention "
         f"launches = {cfg.n_layers} x {steps}")
     log(json.dumps({"serve": result}))
-    del model, cache, logits
+    del cache, logits
     free_device(torch)
-    return result
+    return result, model
 
 
 def serve_parity(torch, ops, seed: int) -> float:
@@ -2177,6 +2220,181 @@ def fleet_phase(torch, np, ops, node_ms: int, seed: int) -> dict:
     return out
 
 
+def overhead_bench(torch, ops, model) -> dict:
+    """Phase 12, the decode overhead (paper Fig 11/12), run right after
+    the serve phase on its model: native and manager-live decode windows
+    at batch 4 through ``repro_torch.benchmarks.overhead``, each manager
+    a system of the paper's geometry in HBM; every step of every window
+    must launch the paged kernel in each layer."""
+    from repro_torch.benchmarks import overhead
+    from repro_torch.benchmarks.workload import Geometry
+
+    cfg = model.cfg
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    r = overhead.run(verbose=False, device="cuda", model=model, cfg=cfg,
+                     pairs=OVERHEAD_PAIRS, traced_pairs=OVERHEAD_TRACED_PAIRS,
+                     iters=OVERHEAD_ITERS,
+                     geometry=Geometry(OVERHEAD_MANAGER_MS))
+    dt = time.perf_counter() - t0
+    launches = {"paged_attn": ops.launches.get("paged_attn", 0)}
+    # 4 warm-up windows, the pairs' 2 windows and the traced pairs' 2,
+    # each one step more than its timed steps
+    steps = (OVERHEAD_ITERS + 1) * (4 + 2 * OVERHEAD_PAIRS
+                                    + 2 * OVERHEAD_TRACED_PAIRS)
+    if launches["paged_attn"] != cfg.n_layers * steps:
+        fail(f"bench: overhead: {launches['paged_attn']} paged-attention "
+             f"launches in {steps} steps of {cfg.n_layers} layers")
+    bad = [k for k, v in r.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"bench: overhead: not finite: {bad}")
+    log(f"bench: overhead ({cfg.name} full width, batch {overhead.BATCH}, "
+        f"{OVERHEAD_PAIRS} + {OVERHEAD_TRACED_PAIRS} pairs of "
+        f"{OVERHEAD_ITERS}-step windows) in {dt:.1f} s: native "
+        f"{r['decode_native_ms']:.3f} ms, manager live "
+        f"{r['decode_elastic_ms']:.3f} ms, overhead "
+        f"{r['decode_overhead']:+.4f} (paper <0.05), tracer "
+        f"{r['tracer_overhead']:+.4f}; guest read direct "
+        f"{r['host_direct_us']:.2f} us, translated "
+        f"{r['host_translated_us']:.2f} us")
+    return {"result": r, "rows": overhead.rows_from(r), "seconds": dt,
+            "steps": steps, "launches": launches}
+
+
+def bench_phase(torch, np, ops, bench_ms: int, overhead: dict) -> dict:
+    """Phase 12: the port's benchmark modules (``repro_torch.benchmarks``)
+    on the card at the paper's geometry (2 MiB MSs of 512 x 4 KiB MPs,
+    frames in HBM): fault latency by the paper's method and its scalar
+    reference, the extent sweep, swap throughput, the slot allocator at
+    three sizes, LRU accuracy, the backend mix, metadata and overcommit;
+    with the decode overhead measured after the serve phase, every row of
+    every module. The rows that read no clock of metadata, backend_ratio
+    and lru_accuracy at the reference's sizes are equal on the CPU and
+    the card."""
+    from repro_torch.benchmarks import (backend_ratio, code_size,
+                                        fault_latency, lru_accuracy, metadata,
+                                        overcommit)
+    from repro_torch.benchmarks.workload import (ZERO_FRACTION, Geometry,
+                                                 paper_mix_ms)
+
+    t_phase = time.perf_counter()
+    launches, modules = {k: 0 for k in SWAP_COUNTERS}, {}
+    # the workload's host cost: one Python draw per MP, kept so for the
+    # reference's bytes; every module's fill pays it
+    geo = Geometry(bench_ms)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(BENCH_MIX_MS):
+        paper_mix_ms(rng, geo.ms_bytes, geo.mps_per_ms)
+    mix_ms = (time.perf_counter() - t0) / BENCH_MIX_MS * 1e3
+    log(f"bench: paper_mix_ms, one {geo.ms_bytes} B MS of {geo.mps_per_ms} "
+        f"MPs: {mix_ms:.2f} ms of host time")
+
+    def measured(name, needed, fn):
+        """``fn()`` with the swap counters at 0; each of ``needed``
+        launched, no zero scan."""
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: ops.launches.get(k, 0) for k in SWAP_COUNTERS}
+        modules[name] = {"seconds": time.perf_counter() - t0, "launches": got}
+        check_swap_launches(f"bench: {name}", got, needed)
+        for k, n in got.items():
+            launches[k] += n
+        log(f"bench: {name} in {modules[name]['seconds']:.1f} s; launches {got}")
+        return out
+
+    fl = fault_latency
+    r = measured("fault_latency", SWAP_OUT_IN, lambda: fl.run(
+        n_faults=BENCH_FAULTS, verbose=False, device="cuda",
+        geometry=geo))
+    log(f"bench: {r['faults']} faults a window over {bench_ms} MSs: p50 "
+        f"{r['p50_us']:.2f} us p90 {r['p90_us']:.2f} us p99 "
+        f"{r['p99_us']:.2f} us, under 10 us {r['frac_under_10us']:.4f} "
+        f"(paper 0.9357); by kind (3 windows) "
+        f"{ {k: v['count'] for k, v in r['by_kind_merged'].items()} }")
+    ref = measured("fault_latency_scalar_ref", SWAP_OUT, lambda: fl.run(
+        n_faults=BENCH_REF_FAULTS, verbose=False, fast_path=False,
+        readahead=False, device="cuda", geometry=geo))
+    sweep = measured("extent_sweep", SWAP_OUT_IN, lambda: fl.extent_sweep(
+        verbose=False, device="cuda", geometry=Geometry(BENCH_SWEEP_MS)))
+    thr = measured("swap_throughput", SWAP_OUT + ("scatter_verified",),
+                   lambda: fl.swap_throughput(
+                       verbose=False, device="cuda",
+                       geometry=Geometry(BENCH_THROUGHPUT_MS)))
+    slots = measured("slot_alloc", (), lambda: {
+        n: fl.slot_alloc_bench(verbose=False, device="cuda",
+                               geometry=Geometry(n)) for n in BENCH_SLOT_MS})
+    rows = overhead["rows"] + fl.rows_from(r, ref, thr, sweep,
+                                           slots[BENCH_SLOT_MS[0]])
+    fig = Geometry(BENCH_FIGURE_MS)
+    rows += measured("metadata", SWAP_OUT, lambda: metadata.rows(
+        device="cuda", geometry=fig))
+    rows += measured("overcommit", SWAP_OUT, lambda: overcommit.rows(
+        device="cuda", geometry=fig))
+    rows += measured("lru_accuracy", (), lambda: lru_accuracy.rows(
+        device="cuda", geometry=geo))
+    rows += measured("backend_ratio", SWAP_OUT, lambda: backend_ratio.rows(
+        device="cuda", geometry=fig))
+    rows += code_size.rows()
+
+    # the reference's sizes on both devices: every result reads no clock
+    cross = {}
+    for name, mod in (("metadata", metadata), ("backend_ratio", backend_ratio),
+                      ("lru_accuracy", lru_accuracy)):
+        on_cpu = mod.run(verbose=False, device="cpu")
+        on_card = mod.run(verbose=False, device="cuda")
+        if on_card != on_cpu:
+            fail(f"bench: {name} differs on the card: {on_card} != {on_cpu}")
+        cross[name] = on_card
+    if (cross["lru_accuracy"]["precision"], cross["lru_accuracy"]["recall"]) \
+            != (1.0, 1.0):
+        fail(f"bench: lru_accuracy at the reference's size: {cross['lru_accuracy']}")
+    dt = time.perf_counter() - t_phase
+
+    table = {}
+    for name, value, derived in rows:
+        found = PAPER_IN_DERIVED.search(derived)
+        table[name] = {"value": value, "derived": derived,
+                       "paper": PAPER_NOT_IN_ROWS.get(
+                           name, found and found.group(0))}
+    bad = [n for n, row in table.items() if not math.isfinite(row["value"])]
+    if bad:
+        fail(f"bench: rows not finite: {bad}")
+    if table["overcommit_elasticity"]["value"] < 0.5:
+        fail(f"bench: elasticity {table['overcommit_elasticity']['value']} < 0.5")
+    zero = table["backend_zero_fraction"]["value"]
+    if abs(zero - ZERO_FRACTION) > BENCH_ZERO_TOL:
+        fail(f"bench: backend zero fraction {zero} is not within "
+             f"{BENCH_ZERO_TOL} of the workload's {ZERO_FRACTION}")
+    for name, row in table.items():
+        if row["paper"]:
+            log(f"bench: {name} {row['value']:.6g} ({row['paper']})")
+    out = {
+        "seconds": dt, "overhead_seconds": overhead["seconds"],
+        "paper_mix_ms_host_ms": mix_ms,
+        "geometry": {"ms_bytes": 2 << 20, "mps_per_ms": 512,
+                     "bench_ms": bench_ms, "sweep_ms": BENCH_SWEEP_MS,
+                     "throughput_ms": BENCH_THROUGHPUT_MS,
+                     "figure_ms": BENCH_FIGURE_MS},
+        "rows": table,
+        "fault": {k: r[k] for k in (
+            "faults", "p50_us", "p90_us", "p99_us", "mean_us",
+            "frac_under_10us", "frac_under_15us", "zero_page_faults",
+            "compressed_faults", "fast_path_faults", "readahead_extents",
+            "readahead_mps", "compressed_seeded", "window_deltas")},
+        "fault_by_kind": r["by_kind_merged"],
+        "slot_alloc_us": {n: slots[n] for n in BENCH_SLOT_MS},
+        "extent_sweep": sweep, "swap_throughput": thr,
+        "overhead": overhead["result"], "overhead_steps": overhead["steps"],
+        "cross_device": {"equal": True, **cross},
+        "modules": modules, "launches": launches}
+    log(json.dumps({"bench": out}))
+    free_device(torch)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--managed-ms", type=int, default=2048,
@@ -2185,6 +2403,9 @@ def main() -> int:
     ap.add_argument("--fleet-node-ms", type=int, default=256,
                     help="managed 2 MiB MSs of each of the fleet phase's 4 "
                          "nodes (the paper's node holds 16384)")
+    ap.add_argument("--bench-ms", type=int, default=BENCH_MS,
+                    help="managed 2 MiB MSs of the bench phase's fault "
+                         "latency and LRU accuracy runs")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-sources", type=Path, default=None,
                     help="a directory with earlier swap_kernels.cu, "
@@ -2241,15 +2462,22 @@ def main() -> int:
     free_device(torch)
 
     # 6. serve, 7. serve-parity, 8. elastic-kv, 9. elastic-serving
-    served = serve_path(torch, ops, args.seed)
+    served, model = serve_path(torch, ops, args.seed)
     launches["paged_attn"] = served["paged_attn_launches"]
+    # phase 12's decode overhead runs here, on the serve phase's model
+    overhead = overhead_bench(torch, ops, model)
+    launches["paged_attn"] += overhead["launches"]["paged_attn"]
+    del model
+    free_device(torch)
     serve_parity(torch, ops, args.seed)
     elastic_kv(torch, ops, args.seed)
     elastic_serving(torch, ops, args.seed)
 
-    # 10. expert cache, 11. fleet: their launches join the main paths'
+    # 10. expert cache, 11. fleet, 12. bench: their launches join the
+    # main paths'
     for phase in (expert_cache_phase(torch, np, core, ops, args.seed),
-                  fleet_phase(torch, np, ops, args.fleet_node_ms, args.seed)):
+                  fleet_phase(torch, np, ops, args.fleet_node_ms, args.seed),
+                  bench_phase(torch, np, ops, args.bench_ms, overhead)):
         for k, n in phase["launches"].items():
             launches[k] = launches.get(k, 0) + n
 

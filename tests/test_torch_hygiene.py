@@ -52,7 +52,15 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.core.elastic_params, repro_torch.fleet, "
             "repro_torch.fleet.trace, repro_torch.fleet.node, "
             "repro_torch.fleet.controller, repro_torch.fleet.harness, "
-            "repro_torch.fleet.capture, repro_torch.benchmarks.fleet; "
+            "repro_torch.fleet.capture, repro_torch.benchmarks.fleet, "
+            "repro_torch.benchmarks.workload, "
+            "repro_torch.benchmarks.code_size, "
+            "repro_torch.benchmarks.lru_accuracy, "
+            "repro_torch.benchmarks.backend_ratio, "
+            "repro_torch.benchmarks.metadata, "
+            "repro_torch.benchmarks.overcommit, "
+            "repro_torch.benchmarks.fault_latency, "
+            "repro_torch.benchmarks.overhead, repro_torch.benchmarks.run; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
