@@ -3,8 +3,8 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--managed-ms 2048] [--fleet-node-ms 256]
-                          [--bench-ms 1024] [--seed 0]
+    python3 chip_smoke.py [--managed-ms 1024] [--fleet-node-ms 128]
+                          [--bench-ms 512] [--seed 0]
 
 Phases, one after another, each fatal on failure (exit code 1), each
 freeing its device memory before the next:
@@ -24,7 +24,7 @@ freeing its device memory before the next:
                    f32/f16/bf16, zero, -0.0 and tie MPs, qwen3-4b's KV
                    block); time kernel, plain version and library call,
                    paged attention also at the kv_len of ``ATTN_SWEEP``,
-                   the swap kernels, paged attention and quantize also
+                   the swap kernels, paged attention and the quantize pair also
                    L2-cold, and with ``--compare-sources DIR`` the
                    swap-in's chunk write (host clock), Fletcher, paged
                    attention, quantize and, where DIR's sources have the
@@ -90,10 +90,28 @@ freeing its device memory before the next:
                    backend's zero share within 0.02 of the workload's,
                    and metadata, backend_ratio and lru_accuracy at the
                    reference's sizes equal on the CPU and the card; prints
-                   every row beside the paper's figure.
+                   every row beside the paper's figure;
+13. train       -- training and prefill of the dense and MoE families:
+                   (a) three train steps of reduced qwen3-4b and
+                   deepseek-moe-16b (f32) on the card and on the CPU from
+                   the same state and batches, within the CPU parity
+                   test's tolerances; (b) qwen3-4b at full width cut to 16
+                   of 36 layers through ``run_training``, 6 steps of batch
+                   4 x 512 (step ms, tokens/s, peak memory, device busy
+                   share, FLOP share; the loss must fall), then a
+                   64-token prompt through
+                   ``prefill_step`` against paged decode; (c) the
+                   quickstart's 100M config, a checkpoint at step 10 of
+                   20 restored bit for bit into a fresh state and resumed;
+                   (d) the elastic MoE training example at deepseek-moe-
+                   16b's full width, 4 layers, its first MoE layer's 64
+                   experts in an expert cache with HBM for 32, every expert
+                   bit-exact at the end, then paged decode against
+                   prefill.
 
 The last two lines of standard output are the kernel table and the
-device line as JSON; the ``{"bench": ...}`` line comes before them. No
+device line as JSON; the ``{"bench": ...}`` and ``{"train": ...}``
+lines come before them. No
 card, or no ``src/repro_torch`` beside this file: a non-zero exit and no
 result.
 """
@@ -229,16 +247,18 @@ FLEET_KEPT_SLACK = 4 << 20
 # latency and LRU accuracy runs (``--bench-ms``), of the extent sweep, of
 # swap_throughput (its 16 MSs and 4 spare, as the reference's), of the
 # slot allocator (the fleet's node sizes and the main path's) and of the
-# figure benchmarks; faults a window and in the scalar reference run
-BENCH_MS, BENCH_SWEEP_MS, BENCH_THROUGHPUT_MS = 1024, 32, 20
+# figure benchmarks; faults a window and in the scalar reference run.
+# --bench-ms is at its floor, 512 (1024 before phase 13 came; PERF.md §4)
+BENCH_MS, BENCH_SWEEP_MS, BENCH_THROUGHPUT_MS = 512, 32, 20
 BENCH_SLOT_MS, BENCH_FIGURE_MS = (128, 256, 2048), 256
 BENCH_FAULTS, BENCH_REF_FAULTS = 3000, 1000
 # MSs of paper-mix data drawn to time the workload generator
 BENCH_MIX_MS = 32
 # the decode overhead: the serve phase's model at batch 4 (the module's),
 # native/elastic pairs and traced pairs of 30-step windows, each elastic
-# window's manager with 512 managed MSs
-OVERHEAD_PAIRS, OVERHEAD_TRACED_PAIRS, OVERHEAD_ITERS = 8, 6, 30
+# window's manager with 512 managed MSs (4 + 2 pairs, the module's smoke
+# setting, cut from 8 + 6 for the script's time limit; PERF.md §4)
+OVERHEAD_PAIRS, OVERHEAD_TRACED_PAIRS, OVERHEAD_ITERS = 4, 2, 30
 OVERHEAD_MANAGER_MS = 512
 # the backend mix may stray this far from the workload's zero fraction
 BENCH_ZERO_TOL = 0.02
@@ -248,6 +268,51 @@ BENCH_ZERO_TOL = 0.02
 PAPER_IN_DERIVED = re.compile(r"paper(?:_target)?[<>=~][^_]*(?:_p\d+)?")
 PAPER_NOT_IN_ROWS = {"lru_cold_ratio": "paper=0.5279",
                      "mpool_utilization": "paper=0.4669"}
+# the train phase (13). (a) card-against-CPU parity: reduced qwen3-4b and
+# deepseek-moe-16b in f32, attention tiles 32/64, 3 train steps of batch 2
+# x 128 tokens, held to tests/test_torch_train.py's tolerances
+TRAIN_PARITY_ARCHS, TRAIN_PARITY_STEPS = ("qwen3-4b", "deepseek-moe-16b"), 3
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
+TRAIN_PARITY_TOL, TRAIN_PARITY_ABS = 1e-5, 2e-5
+# (b) qwen3-4b at full width (f32 parameters and AdamW state, bf16
+# compute) cut to 16 of 36 layers: its 2.39 B parameters, gradients and
+# two moments take 38.3 GB (36 layers: 70.6 GB before activations);
+# run_training for 6 steps of batch 4 x 512, remat on, at a tenth of the
+# reference's lr 3e-4: with run_training's 1-step warmup, Adam's first
+# step at 3e-4 moves every weight by about lr, and the loss at step 6
+# stands at 18-25 against 12.5 at step 1 (at 3e-5: 10.8-11.4; 2 seeds,
+# tools/prefill_decode_spread.py); the loss at the last step must be
+# below step 1's. Then a 64-token prompt at batch 4 through prefill_step
+# against serve_step token by token (the paged kernel): last-token
+# logits within PREFILL_DECODE_TOL of their largest, here and in (d).
+# tests/test_models.py's 2e-3 is for decode against the forward in f32;
+# in bf16 the two paths round at different points (prefill rounds
+# q*scale, the scores and the probabilities to bf16; the paged kernel
+# keeps them in f32). Sound decodes read 2.9e-2 to 3.6e-2 (qwen3-4b as
+# initialised and trained at 3e-5) and 1.2e-2 to 5.8e-2 (deepseek-moe-
+# 16b); a decode whose kv_len is one short, or that lost one token's K/V
+# write, reads 0.32 or more, and a MoE decode without layer0 1.3 or more
+# (tools/prefill_decode_spread.py; PERF.md §6)
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-4b", 16, 6, 4, 512
+TRAIN_LR, PREFILL_BATCH, PREFILL_PROMPT = 3e-5, 4, 64
+PREFILL_DECODE_TOL = 1e-1
+# the H100 SXM's dense bf16 tensor-core peak (data sheet)
+BF16_FLOPS_PER_S = 989e12
+# (c) checkpoint and resume at the quickstart's 100M config: 20 steps of
+# batch 8 x 256, a checkpoint at step 10, steps 11-20 again from it;
+# resumed losses within CKPT_LOSS_TOL relative (the embedding's backward
+# adds with atomics on the card, so the runs are not bit-equal)
+CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ, CKPT_LOSS_TOL = 20, 10, 8, 256, 1e-2
+# (d) the elastic MoE training example at deepseek-moe-16b's full width,
+# 4 of 28 layers (layer0 and 3 MoE layers: 2.27 B parameters, 36.3 GB of
+# training state): the first MoE layer's 64 routed experts mirrored in an
+# expert cache with HBM for 32, phase 10's backend settings; steps of the
+# example's batch 4 x 64; then 8 decode steps at batch 4 against
+# prefill_step, within PREFILL_DECODE_TOL. All 64 experts are routed
+# every step, so each step swaps ~140 experts out and ~140 in
+# through host zlib: 55-77 s a step on the H100's host. 4 steps, cut from
+# 6 for the script's time limit (PERF.md §4)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_BATCH, MOE_SEQ, MOE_DECODE = 4, 4, 4, 64, 8
 
 
 def fail(msg: str) -> None:
@@ -257,6 +322,10 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def done(phase: str) -> None:
+    log(f"chip_smoke: {phase} done at {time.perf_counter() - T0:.1f} s")
 
 
 # ---------------------------------------------------------------- timing
@@ -1068,6 +1137,7 @@ def check_quantize(torch, ops, ref, seed: int) -> dict:
         "block_dequantize": dict(
             shape=shape, max_abs_err=0.0,
             kernel_us=time_us(torch, lambda: ops.launch_dequantize(q, s, out)),
+            cold=time_cold_us(torch, lambda: ops.launch_dequantize(q, s, out), flush),
             plain_us=time_us(torch, lambda: ref.block_dequantize(
                 q, s, torch.bfloat16), inner=10),
             library_us=time_us(torch, library),
@@ -2395,12 +2465,371 @@ def bench_phase(torch, np, ops, bench_ms: int, overhead: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- train
+def _copy_state(torch, state, device):
+    """A train state's model and moments copied to ``device``."""
+    import copy
+
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.steps import TrainState
+    return TrainState(state.step, copy.deepcopy(state.model).to(device),
+                      AdamWState([t.to(device, copy=True) for t in state.opt.mu],
+                                 [t.to(device, copy=True) for t in state.opt.nu]))
+
+
+def train_parity(torch, seed: int) -> dict:
+    """Phase 13 (a): three train steps of reduced qwen3-4b and
+    deepseek-moe-16b (f32) from the same state and batches on the card and
+    on the CPU; loss, grad norm and every parameter within the CPU
+    parity test's tolerances."""
+    import dataclasses
+
+    from repro_torch.configs.reduce import reduced_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = dataclasses.replace(reduced_config(arch), attn_chunk_q=32,
+                                  attn_chunk_kv=64)
+        cpu = S.init_train_state(cfg, opt, seed=seed, device="cpu")
+        gpu = _copy_state(torch, cpu, "cuda")
+        pipe = SyntheticPipeline(cfg, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, seed=seed)
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for _ in range(TRAIN_PARITY_STEPS):
+            b = pipe.next_batch()
+            cpu, mc = S.train_step(cpu, S.to_device(b, "cpu"), cfg, opt)
+            gpu, mg = S.train_step(gpu, S.to_device(b, "cuda"), cfg, opt)
+            for k in worst:
+                a, g = float(mc[k]), float(mg[k])
+                if not (math.isfinite(g) and abs(g - a) <= TRAIN_PARITY_TOL * abs(a)):
+                    fail(f"train-parity: {arch} {k} {g} on the card, {a} on the CPU")
+                worst[k] = max(worst[k], abs(g - a) / abs(a))
+        param_err, param_name = 0.0, None
+        for (name, pc), pg in zip(cpu.model.named_parameters(), gpu.model.parameters()):
+            err = float((pg.detach().cpu() - pc.detach()).abs().max())
+            lim = max(TRAIN_PARITY_TOL * float(pc.detach().abs().max()), TRAIN_PARITY_ABS)
+            if not err <= lim:
+                fail(f"train-parity: {arch} {name} differs by {err} (> {lim})")
+            if err > param_err:
+                param_err, param_name = err, name
+        out[arch] = {"loss_rel_err": worst["loss"],
+                     "grad_norm_rel_err": worst["grad_norm"],
+                     "param_max_abs_err": param_err, "param_worst": param_name}
+        del cpu, gpu
+    free_device(torch)
+    return out
+
+
+def _attn_flops(cfg, layers: int, batch: int, seq: int) -> int:
+    """Forward score and value products of every (query, key) pair the
+    chunked attention computes (its tiles cover the whole S x S)."""
+    return 4 * layers * batch * cfg.n_heads * seq * seq * cfg.head_dim_
+
+
+def train_full_width(torch, ops, seed: int, smi: str) -> dict:
+    """Phase 13 (b): qwen3-4b at full width, TRAIN_LAYERS layers, through
+    ``run_training``; then prefill against token-by-token paged decode."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_training
+    from repro_torch.train import steps as S
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = run_training(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     lr=TRAIN_LR, ckpt_dir=None, ckpt_every=TRAIN_STEPS,
+                     seed=seed, log_every=TRAIN_STEPS, device="cuda")
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    state = r["state"]
+    n_params = sum(p.numel() for p in state.model.parameters())
+    bad = [i + 1 for i, (lo, g) in enumerate(zip(r["loss"], r["grad_norm"]))
+           if not (math.isfinite(lo) and math.isfinite(g))]
+    if bad:
+        fail(f"train: steps {bad} have a loss or grad norm that is not finite")
+    if not r["loss"][-1] < r["loss"][0]:
+        fail(f"train: loss {r['loss'][-1]} at step {TRAIN_STEPS} not below "
+             f"{r['loss'][0]} at step 1")
+    steady = sorted(r["step_ms"][1:])
+    med_ms = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # 6 flops a parameter and token for the matrix products; an untied
+    # input embedding is a lookup, not a product
+    matmul_params = n_params - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+    flops = 6 * matmul_params * tokens + 3 * _attn_flops(cfg, cfg.n_layers,
+                                                          TRAIN_BATCH, TRAIN_SEQ)
+    # one more step under the profiler: its device time against the
+    # unprofiled median step
+    batch = S.to_device(r["pipeline"].next_batch(), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, met = S.train_step(state, batch, cfg, r["opt_cfg"])
+        float(met["loss"])
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    dev_us, _, top = _device_times(torch, prof)
+    for i, (lo, g) in enumerate(zip(r["loss"], r["grad_norm"])):
+        log(f"train: step {i + 1} loss {lo:.4f} grad_norm {g:.4f} "
+            f"{r['step_ms'][i]:.1f} ms")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "layers_full": get_config(TRAIN_ARCH).n_layers, "params": n_params,
+           "state_gb": n_params * 16 / 1e9, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "remat": True,
+           "loss": r["loss"], "grad_norm": r["grad_norm"], "lr": r["lr"],
+           "step_ms": r["step_ms"], "step_ms_median_2_6": med_ms,
+           "tokens_per_s": tokens / med_ms * 1e3,
+           "peak_memory_gb": peak / 1e9, "run_s": run_s,
+           "matmul_params": matmul_params, "model_flops_per_step": flops,
+           "flop_share_bf16_peak": flops / (med_ms / 1e3) / BF16_FLOPS_PER_S,
+           "profiled_step_ms": prof_ms,
+           "device_us_per_step": dev_us,
+           "device_busy_share": None if dev_us is None else dev_us / (med_ms * 1e3),
+           "device_top_us": top}
+    log(f"train: {cfg.name} {cfg.n_layers}/{out['layers_full']} layers, "
+        f"{n_params / 1e9:.3f} B params ({out['state_gb']:.1f} GB of params, "
+        f"grads and moments), batch {TRAIN_BATCH} x {TRAIN_SEQ}: step "
+        f"{med_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak {peak / 1e9:.2f} GB, device "
+        f"busy {out['device_busy_share']}, {flops / 1e12:.1f} TFLOP a step = "
+        f"{out['flop_share_bf16_peak']:.3f} of the bf16 peak; {smi}")
+
+    # prefill against paged decode, on the trained parameters
+    g = torch.Generator(device="cpu").manual_seed(seed + 11)
+    prompt = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_PROMPT),
+                           generator=g).to("cuda")
+    out.update(_prefill_vs_decode(torch, ops, state.model, cfg, prompt,
+                                  PREFILL_DECODE_TOL, "train"))
+    del state, r, batch, met, prof
+    free_device(torch)
+    return out
+
+
+def prefill_decode_err(torch, ops, model, cfg, prompt) -> dict:
+    """Last-token logits of ``prefill_step`` against the same prompt fed
+    through ``serve_step`` token by token (the paged kernel in every
+    attention layer of every step): the largest difference relative to
+    the largest logit, the share of equal argmaxes, the paged launches."""
+    from repro_torch.models import model as M
+    from repro_torch.train import steps as S
+
+    B, T = prompt.shape
+    t0 = time.perf_counter()
+    want, _ = S.prefill_step(model, {"tokens": prompt}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache = M.init_cache(cfg, B, -(-T // cfg.kv_block_tokens) * cfg.kv_block_tokens,
+                         device="cuda")
+    ops.reset_launches()
+    for t in range(T):
+        got, cache = S.serve_step(model, prompt[:, t], cache, cfg)
+    want, got = want.float(), got.float()
+    finite = bool(torch.isfinite(got).all() & torch.isfinite(want).all())
+    return {"prefill_tokens": T, "prefill_batch": B, "prefill_ms": prefill_ms,
+            "prefill_vs_decode_rel_err": (float((got - want).abs().max()
+                                                / want.abs().max())
+                                          if finite else math.inf),
+            "argmax_equal": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean()),
+            "paged_attn_launches": ops.launches.get("paged_attn", 0)}
+
+
+def _prefill_vs_decode(torch, ops, model, cfg, prompt, tol: float,
+                       where: str) -> dict:
+    """``prefill_decode_err``, held to ``tol``; every attention layer of
+    every decode step must launch the paged kernel."""
+    B, T = prompt.shape
+    r = prefill_decode_err(torch, ops, model, cfg, prompt)
+    if r["paged_attn_launches"] != cfg.n_layers * T:
+        fail(f"{where}: {r['paged_attn_launches']} paged-attention launches in "
+             f"{T} decode steps of {cfg.n_layers} layers")
+    err = r["prefill_vs_decode_rel_err"]
+    if not err < tol:
+        fail(f"{where}: prefill and paged decode logits differ by relative {err}")
+    log(f"{where}: prefill of {B} x {T} tokens in {r['prefill_ms']:.1f} ms; "
+        f"last-token logits against {T} paged decode steps: relative {err:.2e} "
+        f"(tolerance {tol}), argmax equal {r['argmax_equal']:.2f}")
+    return {**r, "tolerance": tol}
+
+
+def train_checkpoint(torch, seed: int) -> dict:
+    """Phase 13 (c): the quickstart's 100M config, 20 steps with a
+    checkpoint at step 10, then steps 11-20 again from a fresh state and
+    pipeline restored from it."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.examples.quickstart import config_100m
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as S
+
+    cfg = config_100m()
+    opt = adamw.AdamWConfig(lr=6e-4, total_steps=CKPT_STEPS,
+                            warmup_steps=max(1, CKPT_STEPS // 20))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        ckpt = CheckpointManager(str(tmp))
+        state = S.init_train_state(cfg, opt, seed=seed, device="cuda")
+        pipe = SyntheticPipeline(cfg, CKPT_BATCH, CKPT_SEQ, seed=seed)
+        losses, step_ms = [], []
+        t0 = time.perf_counter()
+        for i in range(CKPT_STEPS):
+            t1 = time.perf_counter()
+            state, met = S.train_step(state, S.to_device(pipe.next_batch(), "cuda"),
+                                      cfg, opt)
+            losses.append(float(met["loss"]))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            if i + 1 == CKPT_AT:
+                t1 = time.perf_counter()
+                ckpt.save(CKPT_AT, state, pipe.snapshot())
+                save_s = time.perf_counter() - t1
+                saved = [t.detach().clone() for t in (*state.model.parameters(),
+                                                      *state.opt.mu, *state.opt.nu)]
+                cursor = pipe.snapshot()
+        run_s = time.perf_counter() - t0
+        del state
+        fresh = S.init_train_state(cfg, opt, seed=seed + 1, device="cuda")
+        pipe2 = SyntheticPipeline(cfg, CKPT_BATCH, CKPT_SEQ, seed=seed + 1)
+        t1 = time.perf_counter()
+        fresh, manifest = ckpt.restore(fresh)
+        pipe2.restore(manifest["pipeline"])
+        restore_s = time.perf_counter() - t1
+        got = [*fresh.model.parameters(), *fresh.opt.mu, *fresh.opt.nu]
+        unequal = sum(not torch.equal(a.detach(), b) for a, b in zip(got, saved))
+        if len(got) != len(saved) or unequal:
+            fail(f"train-ckpt: {unequal} of {len(saved)} restored tensors differ")
+        if fresh.step != CKPT_AT or pipe2.snapshot() != cursor:
+            fail(f"train-ckpt: restored step {fresh.step}, cursor "
+                 f"{pipe2.snapshot()} (saved {CKPT_AT}, {cursor})")
+        resumed = []
+        for _ in range(CKPT_AT, CKPT_STEPS):
+            fresh, met = S.train_step(fresh, S.to_device(pipe2.next_batch(), "cuda"),
+                                      cfg, opt)
+            resumed.append(float(met["loss"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errs = [abs(a - b) / abs(b) for a, b in zip(resumed, losses[CKPT_AT:])]
+    if not all(math.isfinite(x) for x in losses + resumed) or max(errs) > CKPT_LOSS_TOL:
+        fail(f"train-ckpt: resumed losses {resumed} against {losses[CKPT_AT:]}")
+    if not losses[-1] < losses[0]:
+        fail(f"train-ckpt: loss {losses[-1]} at step {CKPT_STEPS} not below "
+             f"{losses[0]} at step 1")
+    steady = sorted(step_ms[1:])
+    out = {"arch": cfg.name, "params": cfg.param_count(), "batch": CKPT_BATCH,
+           "seq": CKPT_SEQ, "steps": CKPT_STEPS, "checkpoint_at": CKPT_AT,
+           "restored_tensors_bit_equal": len(saved), "loss": losses,
+           "resumed_loss": resumed, "resumed_max_rel_err": max(errs),
+           "tolerance": CKPT_LOSS_TOL, "step_ms_median": steady[len(steady) // 2],
+           "run_s": run_s, "save_s": save_s, "restore_s": restore_s}
+    log(f"train-ckpt: {cfg.name} ({out['params'] / 1e6:.1f} M), {CKPT_STEPS} steps "
+        f"of {CKPT_BATCH} x {CKPT_SEQ}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"step {out['step_ms_median']:.1f} ms; checkpoint at {CKPT_AT} saved in "
+        f"{save_s:.1f} s, restored in {restore_s:.1f} s, {len(saved)} tensors "
+        f"bit-equal; resumed losses within relative {max(errs):.2e}")
+    del fresh, saved
+    free_device(torch)
+    return out
+
+
+def train_elastic_moe(torch, ops, core, seed: int) -> dict:
+    """Phase 13 (d): the elastic MoE training example at deepseek-moe-16b's
+    full width, MOE_TRAIN_LAYERS layers, its first MoE layer's experts in
+    an expert cache with HBM for half of them; then paged decode against
+    prefill on the trained model."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import HotPathConfig, SwapConfig
+    from repro_torch.examples import elastic_moe_training
+
+    cfg = dataclasses.replace(get_config(EXPERT_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    free_device(torch)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        r = elastic_moe_training.run(
+            cfg, steps=MOE_TRAIN_STEPS, batch=MOE_BATCH, seq=MOE_SEQ, seed=seed,
+            device="cuda", log_every=1,
+            backend=core.BackendConfig(extent_max_rows=EXPERT_EXTENT_ROWS),
+            swap=SwapConfig(hot_path=HotPathConfig(compress_workers=EXPERT_ZLIB_WORKERS)))
+    except AssertionError as exc:
+        fail(f"train-moe: an expert differs from the training state: {exc}")
+    except core.PinnedError as exc:
+        fail(f"train-moe: {exc}")
+    run_s = time.perf_counter() - t0
+    launches = {k: ops.launches.get(k, 0) for k in SWAP_COUNTERS}
+    if not all(math.isfinite(x) for x in r["loss"]):
+        fail(f"train-moe: losses {r['loss']}")
+    if r["crc_failures"]:
+        fail(f"train-moe: {r['crc_failures']} CRC failures")
+    check_swap_launches("train-moe", launches, SWAP_OUT_IN + ("scatter_verified",))
+    model = r["state"].model
+    n_params = sum(p.numel() for p in model.parameters())
+    steady = sorted(r["step_ms"][1:])
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "layers_full": get_config(EXPERT_ARCH).n_layers, "params": n_params,
+           "state_gb": n_params * 16 / 1e9, "batch": MOE_BATCH, "seq": MOE_SEQ,
+           "steps": MOE_TRAIN_STEPS, "loss": r["loss"], "step_ms": r["step_ms"],
+           "step_ms_median": steady[len(steady) // 2],
+           "active_experts": r["active"], "experts": cfg.moe.n_routed,
+           "experts_in_hbm": cfg.moe.n_routed // 2,
+           "experts_verified_bit_exact": r["verified"], "residency": r["residency"],
+           "run_s": run_s, "setup_s": r["setup_s"], "verify_s": r["verify_s"],
+           "launches": launches, **{k: r[k] for k in (
+               "ms_swapped_out", "ms_swapped_in", "mp_swapped_out",
+               "mp_swapped_in", "faults", "crc_failures")}}
+    log(f"train-moe: {cfg.name} {cfg.n_layers}/{out['layers_full']} layers, "
+        f"{n_params / 1e9:.3f} B params, {MOE_TRAIN_STEPS} steps of {MOE_BATCH} x "
+        f"{MOE_SEQ} in {run_s:.1f} s (set-up {r['setup_s']:.1f} s, median step "
+        f"{out['step_ms_median']:.0f} ms, final check {r['verify_s']:.1f} s), "
+        f"{sum(r['active']) / len(r['active']):.1f} of {cfg.moe.n_routed} experts active a step; "
+        f"experts swapped out {r['ms_swapped_out']}, in {r['ms_swapped_in']}, "
+        f"faults {r['faults']}, residency {r['residency']}; all "
+        f"{r['verified']} experts bit-exact")
+    g = torch.Generator(device="cpu").manual_seed(seed + 13)
+    prompt = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_DECODE),
+                           generator=g).to("cuda")
+    out.update(_prefill_vs_decode(torch, ops, model, cfg, prompt,
+                                  PREFILL_DECODE_TOL, "train-moe"))
+    del r, model
+    free_device(torch)
+    return out
+
+
+def train_phase(torch, ops, core, seed: int, smi: str) -> dict:
+    """Phase 13: training and prefill of the dense and MoE families."""
+    t0 = time.perf_counter()
+    parity = train_parity(torch, seed)
+    log(f"train-parity: {json.dumps(parity)}")
+    full = train_full_width(torch, ops, seed, smi)
+    ckpt = train_checkpoint(torch, seed)
+    moe = train_elastic_moe(torch, ops, core, seed)
+    launches = dict(moe["launches"])
+    launches["paged_attn"] = (full["paged_attn_launches"]
+                              + moe["paged_attn_launches"])
+    out = {"seconds": time.perf_counter() - t0, "device": smi,
+           "parity": parity, "full_width": full, "checkpoint": ckpt,
+           "elastic_moe": moe, "launches": launches}
+    log(json.dumps({"train": out}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--managed-ms", type=int, default=2048,
+    ap.add_argument("--managed-ms", type=int, default=1024,
                     help="managed 2 MiB MSs of guest frames in HBM "
                          "(16384 = the paper's 32 GiB)")
-    ap.add_argument("--fleet-node-ms", type=int, default=256,
+    ap.add_argument("--fleet-node-ms", type=int, default=128,
                     help="managed 2 MiB MSs of each of the fleet phase's 4 "
                          "nodes (the paper's node holds 16384)")
     ap.add_argument("--bench-ms", type=int, default=BENCH_MS,
@@ -2447,6 +2876,7 @@ def main() -> int:
         compare_old_new(torch, ops, load_old_build(*old_build), args.seed)
     else:
         log("old-vs-new: not measured (no --compare-sources)")
+    done("build and kernels")
 
     # 3. main path, 4. corruption
     s, launches = main_path(torch, np, core, ops, args.managed_ms, args.seed)
@@ -2456,10 +2886,12 @@ def main() -> int:
         s.close()
     del s
     free_device(torch)
+    done("main and corrupt")
 
     # 5. hot switch and hot upgrade
     hot_switch_phase(torch, np, core, ops, args.managed_ms, args.seed, smi)
     free_device(torch)
+    done("hot-switch")
 
     # 6. serve, 7. serve-parity, 8. elastic-kv, 9. elastic-serving
     served, model = serve_path(torch, ops, args.seed)
@@ -2469,17 +2901,22 @@ def main() -> int:
     launches["paged_attn"] += overhead["launches"]["paged_attn"]
     del model
     free_device(torch)
+    done("serve and the decode overhead")
     serve_parity(torch, ops, args.seed)
     elastic_kv(torch, ops, args.seed)
     elastic_serving(torch, ops, args.seed)
+    done("serve-parity, elastic-kv and elastic-serving")
 
-    # 10. expert cache, 11. fleet, 12. bench: their launches join the
-    # main paths'
-    for phase in (expert_cache_phase(torch, np, core, ops, args.seed),
-                  fleet_phase(torch, np, ops, args.fleet_node_ms, args.seed),
-                  bench_phase(torch, np, ops, args.bench_ms, overhead)):
-        for k, n in phase["launches"].items():
+    # 10. expert cache, 11. fleet, 12. bench, 13. train: their launches
+    # join the main paths'
+    for name, run in (
+            ("expert-cache", lambda: expert_cache_phase(torch, np, core, ops, args.seed)),
+            ("fleet", lambda: fleet_phase(torch, np, ops, args.fleet_node_ms, args.seed)),
+            ("bench", lambda: bench_phase(torch, np, ops, args.bench_ms, overhead)),
+            ("train", lambda: train_phase(torch, ops, core, args.seed, smi))):
+        for k, n in run()["launches"].items():
             launches[k] = launches.get(k, 0) + n
+        done(name)
 
     rows = []
     for name, (counter, replaces, source, path) in KERNELS.items():

@@ -114,6 +114,9 @@ LOCK_CLASSES: Dict[str, LockClass] = {c.name: c for c in (
     LockClass("metrics", 70,
               "leaf telemetry: latency rings, timelines, span tracer, "
               "fleet trace recorder", multi=True),
+    LockClass("guard", 72,
+              "AccessGuard: guest accesses in flight per gfn, drained by "
+              "the swap-out (nothing is acquired under it)"),
 )}
 
 RANK: Dict[str, int] = {name: c.rank for name, c in LOCK_CLASSES.items()}
@@ -157,6 +160,7 @@ LINT_BINDINGS: Dict[Tuple[Optional[str], str], str] = {
     (None, "_shard_locks"): "slot",
     (None, "pcpu_locks"): "pcpu",
     ("RWLockWriterCancel", "_cond"): "req.rwlock.cond",
+    ("AccessGuard", "_cond"): "guard",
     ("ReqTree", "_lock"): "req.tree",
     ("Mpool", "_lock"): "mpool",
     ("BlockTable", "_lock"): "blocktable",

@@ -149,10 +149,10 @@ class GuestSpace:
         self._guest_write = system.virt.guest_write
         # fast-path state: direct views of the block table and physical
         # buffer.  A resident, unsplit MS resolves with two int32 word
-        # reads and one buffer slice -- no lock, same race class as the
-        # lock-free ``VirtLayer.translate`` (a concurrent swap-out between
-        # probe and copy is the hardware EPT walk racing the fault
-        # handler; the access-bit we set first makes the LRU skip the MS).
+        # reads and one buffer slice, inside the in-flight guard: a
+        # swap-out that unmaps the MS between probe and copy waits for
+        # the copy to be issued before it reads the frame (AccessGuard)
+        self._guard = system.virt.inflight
         self._pfn = system.virt.table.pfn
         self._flags = system.virt.table.flags
         self._buf = system.phys.frames
@@ -202,15 +202,20 @@ class GuestSpace:
         if tr is not None:
             t0 = _perf_ns()
         # fast path: resident, unsplit MS -> direct buffer store
+        fast = False
         if 0 <= gfn < self._n_virt:
-            pfn = self._pfn[gfn]
-            if pfn != NO_PFN and not self._flags[gfn] & F_SPLIT:
-                self._flags[gfn] |= F_ACCESSED
-                base = int(pfn) * ms_bytes + off
-                self._buf[base:base + nbytes].copy_(host_u8(data))
-            else:
-                self._guest_write(gfn * ms_bytes + off, data)
-        else:
+            guard = self._guard
+            guard.enter(gfn)
+            try:
+                pfn = self._pfn[gfn]
+                fast = pfn != NO_PFN and not self._flags[gfn] & F_SPLIT
+                if fast:
+                    self._flags[gfn] |= F_ACCESSED
+                    base = int(pfn) * ms_bytes + off
+                    self._buf[base:base + nbytes].copy_(host_u8(data))
+            finally:
+                guard.leave(gfn)
+        if not fast:
             self._guest_write(gfn * ms_bytes + off, data)
         if tr is not None:
             tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_WRITE)
@@ -234,15 +239,20 @@ class GuestSpace:
         if tr is not None:
             t0 = _perf_ns()
         # fast path: resident, unsplit MS -> direct buffer slice
+        fast = False
         if 0 <= gfn < self._n_virt:
-            pfn = self._pfn[gfn]
-            if pfn != NO_PFN and not self._flags[gfn] & F_SPLIT:
-                self._flags[gfn] |= F_ACCESSED
-                base = int(pfn) * ms_bytes + off
-                data = frame_bytes(self._buf[base:base + nbytes])
-            else:
-                data = self._guest_read(gfn * ms_bytes + off, nbytes)
-        else:
+            guard = self._guard
+            guard.enter(gfn)
+            try:
+                pfn = self._pfn[gfn]
+                fast = pfn != NO_PFN and not self._flags[gfn] & F_SPLIT
+                if fast:
+                    self._flags[gfn] |= F_ACCESSED
+                    base = int(pfn) * ms_bytes + off
+                    data = frame_bytes(self._buf[base:base + nbytes])
+            finally:
+                guard.leave(gfn)
+        if not fast:
             data = self._guest_read(gfn * ms_bytes + off, nbytes)
         if tr is not None:
             tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_READ)
@@ -264,7 +274,9 @@ class GuestSpace:
     def _batch_probe(self, g: np.ndarray) -> np.ndarray:
         """One fancy-indexed block-table probe for a gfn vector: returns
         the fast-row mask (in-range, resident, unsplit) and marks the
-        fast rows accessed in a single vectorized pass."""
+        fast rows accessed in a single vectorized pass. The caller holds
+        the in-range gfns in the in-flight guard (:meth:`_enter_batch`)
+        until its fast rows' copies are issued."""
         inr = (g >= 0) & (g < self._n_virt)
         gc = np.where(inr, g, 0)
         fast = inr & (self._pfn[gc] != NO_PFN) & ((self._flags[gc] & F_SPLIT) == 0)
@@ -274,6 +286,15 @@ class GuestSpace:
             # lock-free idiom as BlockTable.mark_accessed)
             self._flags[g[fast]] |= F_ACCESSED
         return fast
+
+    def _enter_batch(self, g: np.ndarray) -> List[int]:
+        """Enter the batch's in-range gfns in the in-flight guard; returns
+        them for the matching ``leave_many``. The fast rows are copied
+        inside, the faulting rows after it (a fault may swap out any MS,
+        and the guard must not be held across one)."""
+        held = g[(g >= 0) & (g < self._n_virt)].tolist()
+        self._guard.enter_many(held)
+        return held
 
     def _check_batch_bounds(self, o: np.ndarray, n: np.ndarray,
                             what: str) -> None:
@@ -302,21 +323,26 @@ class GuestSpace:
         arr = np.asarray(reqs, dtype=np.int64).reshape(-1, 3)
         g, o, n = arr[:, 0], arr[:, 1], arr[:, 2]
         self._check_batch_bounds(o, n, "read_many")
-        fast = self._batch_probe(g)
+        held = self._enter_batch(g)
         ms_bytes = self._ms_bytes
         buf = self._buf
-        base = self._pfn[np.where(fast, g, 0)].astype(np.int64) * ms_bytes + o
-        # .tolist() once: per-row numpy scalar indexing costs ~100ns a
-        # touch, which would hand back most of the amortization win
-        fl, bl, nl = fast.tolist(), base.tolist(), n.tolist()
-        out: List[bytes] = []
-        append = out.append
-        for i, b in enumerate(bl):
-            if fl[i]:
-                append(frame_bytes(buf[b:b + nl[i]]))
-            else:
-                append(self._guest_read(int(g[i]) * ms_bytes + int(o[i]),
-                                        nl[i]))
+        out: List[Optional[bytes]] = [None] * len(g)
+        try:
+            fast = self._batch_probe(g)
+            base = (self._pfn[np.where(fast, g, 0)].astype(np.int64)
+                    * ms_bytes + o)
+            # .tolist() once: per-row numpy scalar indexing costs ~100ns a
+            # touch, which would hand back most of the amortization win
+            fl, bl, nl = fast.tolist(), base.tolist(), n.tolist()
+            for i, b in enumerate(bl):
+                if fl[i]:
+                    out[i] = frame_bytes(buf[b:b + nl[i]])
+        finally:
+            self._guard.leave_many(held)
+        for i in range(len(out)):
+            if not fl[i]:
+                out[i] = self._guest_read(int(g[i]) * ms_bytes + int(o[i]),
+                                          nl[i])
         if tr is not None:
             tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_READ_MANY)
         if self._observers:
@@ -340,16 +366,22 @@ class GuestSpace:
                          dtype=np.int64)
         g, o, n = arr[:, 0], arr[:, 1], arr[:, 2]
         self._check_batch_bounds(o, n, "write_many")
-        fast = self._batch_probe(g)
+        held = self._enter_batch(g)
         ms_bytes = self._ms_bytes
         buf = self._buf
-        base = self._pfn[np.where(fast, g, 0)].astype(np.int64) * ms_bytes + o
-        fl, bl, nl = fast.tolist(), base.tolist(), n.tolist()
+        try:
+            fast = self._batch_probe(g)
+            base = (self._pfn[np.where(fast, g, 0)].astype(np.int64)
+                    * ms_bytes + o)
+            fl, bl, nl = fast.tolist(), base.tolist(), n.tolist()
+            for i, (_, _, data) in enumerate(items):
+                if fl[i]:
+                    b = bl[i]
+                    buf[b:b + nl[i]].copy_(host_u8(data))
+        finally:
+            self._guard.leave_many(held)
         for i, (_, _, data) in enumerate(items):
-            if fl[i]:
-                b = bl[i]
-                buf[b:b + nl[i]].copy_(host_u8(data))
-            else:
+            if not fl[i]:
                 self._guest_write(int(g[i]) * ms_bytes + int(o[i]), data)
         if tr is not None:
             tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_WRITE_MANY)
@@ -381,16 +413,22 @@ class GuestSpace:
         tr = self._tr
         if tr is not None:
             t0 = _perf_ns()
-        fast = self._batch_probe(g)
         ms_bytes = self._ms_bytes
         raw = np.empty((g.size, nbytes), np.uint8)
-        base = self._pfn[np.where(fast, g, 0)].astype(np.int64) * ms_bytes + off
-        fl, bl, gl = fast.tolist(), base.tolist(), g.tolist()
+        held = self._enter_batch(g)
+        try:
+            fast = self._batch_probe(g)
+            base = (self._pfn[np.where(fast, g, 0)].astype(np.int64)
+                    * ms_bytes + off)
+            fl, bl, gl = fast.tolist(), base.tolist(), g.tolist()
+            for i in range(g.size):
+                if fl[i]:
+                    b = bl[i]
+                    raw[i] = self._buf[b:b + nbytes].cpu().numpy()
+        finally:
+            self._guard.leave_many(held)
         for i in range(g.size):
-            if fl[i]:
-                b = bl[i]
-                raw[i] = self._buf[b:b + nbytes].cpu().numpy()
-            else:
+            if not fl[i]:
                 raw[i] = np.frombuffer(
                     self._guest_read(gl[i] * ms_bytes + off, nbytes),
                     np.uint8)
@@ -422,15 +460,21 @@ class GuestSpace:
         tr = self._tr
         if tr is not None:
             t0 = _perf_ns()
-        fast = self._batch_probe(g)
         ms_bytes = self._ms_bytes
-        base = self._pfn[np.where(fast, g, 0)].astype(np.int64) * ms_bytes + off
-        fl, bl, gl = fast.tolist(), base.tolist(), g.tolist()
+        held = self._enter_batch(g)
+        try:
+            fast = self._batch_probe(g)
+            base = (self._pfn[np.where(fast, g, 0)].astype(np.int64)
+                    * ms_bytes + off)
+            fl, bl, gl = fast.tolist(), base.tolist(), g.tolist()
+            for i in range(g.size):
+                if fl[i]:
+                    b = bl[i]
+                    self._buf[b:b + nbytes].copy_(host_u8(rows[i]))
+        finally:
+            self._guard.leave_many(held)
         for i in range(g.size):
-            if fl[i]:
-                b = bl[i]
-                self._buf[b:b + nbytes].copy_(host_u8(rows[i]))
-            else:
+            if not fl[i]:
                 self._guest_write(gl[i] * ms_bytes + off,
                                   rows[i].tobytes())
         if tr is not None:

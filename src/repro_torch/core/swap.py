@@ -28,7 +28,9 @@ checked in the same launch (``ops.scatter_verified_rows_``) -- no
 whole-frame copy. Zero-page faults are an
 asynchronous device memset. All of it runs on the device's current
 stream, which every thread shares, so copies issued by the hv_sched
-reclaim threads and by the guest stay ordered.
+reclaim threads and by the guest stay ordered; and a swap-out drains the
+guest copies in flight to its MS (``virt.AccessGuard``) after the unmap
+and before it reads the frame, so none lands after the read.
 """
 from __future__ import annotations
 
@@ -634,6 +636,8 @@ class SwapEngine:
                 rec.set_swapping_in(mp, True)
                 pfn_now = rec.pfn
 
+            # a guest copy translated before the unmap is issued first
+            self.virt.inflight.drain(gfn)
             data = to_host(self.virt.phys.mp_view(pfn_now, mp))
             kind, crc = self.backend.store(gfn, mp, data)     # (5)
 
@@ -694,10 +698,13 @@ class SwapEngine:
                 rec.set_swapping_in_batch(idxs, True)
                 pfn_now = rec.pfn
 
+            # a guest copy translated before the unmap is issued first
+            self.virt.inflight.drain(gfn)
             if tr is not None:
                 t_st = _perf_ns()
             # the chunk's rows, read from the frame on the device (5): on
-            # the stream of every guest write, after the latch above
+            # the stream of every guest write, after the latch above and
+            # after every copy already in flight to this MS
             kinds, crcs = self.backend.store_batch(
                 gfn, idxs, self.virt.phys.ms_rows(pfn_now), rows=idxs)
             if tr is not None:

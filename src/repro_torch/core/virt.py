@@ -33,7 +33,7 @@ and snapshots match.
 from __future__ import annotations
 
 import threading
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -440,6 +440,62 @@ class AddressSpace:
         return gfn, mp, inner
 
 
+class AccessGuard:
+    """Guest accesses in flight, by gfn: the TLB shootdown's analogue.
+
+    A guest access enters its gfn before it reads the block table and
+    leaves once its frame copy is issued on the device stream. A
+    swap-out marks its MPs non-present first and then drains the gfn, so
+    a copy issued against a translation made before that mark reaches
+    the stream ahead of the swap-out's read of the frame -- never after
+    it, and never into a frame already freed and handed to another MS.
+    Nothing is acquired under the lock, and a thread inside never faults
+    or swaps, so a drain waits for copies to be issued and no longer.
+    """
+
+    def __init__(self) -> None:
+        self._n: Dict[int, int] = {}
+        self._cond = threading.Condition(named_lock("guard"))
+        self._waiting = 0
+
+    def enter(self, gfn: int) -> None:
+        with self._cond:
+            self._n[gfn] = self._n.get(gfn, 0) + 1
+
+    def enter_many(self, gfns: List[int]) -> None:
+        with self._cond:
+            n = self._n
+            for g in gfns:
+                n[g] = n.get(g, 0) + 1
+
+    def leave(self, gfn: int) -> None:
+        self.leave_many((gfn,))
+
+    def leave_many(self, gfns) -> None:
+        with self._cond:
+            n = self._n
+            for g in gfns:
+                c = n[g] - 1
+                if c:
+                    n[g] = c
+                else:
+                    del n[g]
+            if self._waiting:
+                self._cond.notify_all()
+
+    def drain(self, gfn: int) -> None:
+        """Return once no access that entered ``gfn`` is still inside."""
+        with self._cond:
+            if gfn not in self._n:
+                return
+            self._waiting += 1
+            try:
+                while gfn in self._n:
+                    self._cond.wait()
+            finally:
+                self._waiting -= 1
+
+
 class VirtualizationLayer:
     """Ties PhysicalMemory + Mpool + BlockTable + AddressSpace together.
 
@@ -460,6 +516,8 @@ class VirtualizationLayer:
         # O(1) fault-descriptor table); a plain attribute so the hot
         # translate path pays one load instead of a getattr with default
         self.mp_present_probe = None
+        # guest accesses in flight; the swap-out drains a gfn through it
+        self.inflight = AccessGuard()
 
         # pin + identity-map the mpool arena (GPA == HPA contract)
         for gfn in range(cfg.mpool_reserve_ms):
@@ -470,9 +528,10 @@ class VirtualizationLayer:
     def translate(self, gpa: int) -> Tuple[int, int, int, int]:
         """GPA -> (gfn, mp, inner, pfn); raises EPTFault if non-resident.
 
-        Lock-free: single-word numpy reads are atomic under the GIL; the
-        worst race (stale split flag) resolves through the fault path,
-        mirroring the hardware EPT walk racing the fault handler.
+        Lock-free: single-word numpy reads are atomic under the GIL. A
+        caller that copies through the result holds the gfn in
+        :attr:`inflight` from before this call until the copy is issued,
+        so a swap-out racing it waits (see :class:`AccessGuard`).
         """
         gfn, mp, inner = self.aspace.gpa_to_gfn_mp(gpa)
         pfn = int(self.table.pfn[gfn])
@@ -487,42 +546,61 @@ class VirtualizationLayer:
         return gfn, mp, inner, pfn
 
     # -------------------------------------------------------- guest accesses
-    def _resolve(self, gva: int) -> Tuple[int, int, int, int]:
+    def _enter_resolved(self, gva: int, nbytes: int) -> Tuple[int, int, int]:
+        """Resolve an access of ``nbytes`` at ``gva``, faulting every MP it
+        covers in; returns ``(gfn, off, pfn)`` with ``gfn`` entered in
+        :attr:`inflight` (the caller issues its copy, then leaves).
+
+        Faults are handled outside the guard. After one, the walk goes on
+        from the faulted MP and then wraps round to the MPs before it, so
+        the hold that returns has seen every MP present (one lost while
+        another faulted comes back) at about two translations an MP."""
         gpa = self.aspace.gva_to_gpa(gva)
+        gfn, mp, inner = self.aspace.gpa_to_gfn_mp(gpa)
+        mp_bytes = self.cfg.mp_bytes
+        off = mp * mp_bytes + inner
+        if off + nbytes > self.cfg.ms_bytes:
+            raise ValueError("guest access crosses an MS boundary")
+        # may cross MP boundaries within the MS: every MP must be present
+        first = gpa - inner - mp * mp_bytes       # MP 0 of this MS
+        end_mp = max(mp, (off + nbytes - 1) // mp_bytes)
+        guard = self.inflight
+        translate = self.translate
+        start = mp
         while True:
+            guard.enter(gfn)
             try:
-                out = self.translate(gpa)
-                break
+                pfn = translate(first + start * mp_bytes)[3]
+                for m in range(start + 1, end_mp + 1):
+                    translate(first + m * mp_bytes)
+                for m in range(mp, start):
+                    translate(first + m * mp_bytes)
             except EPTFault as f:
+                guard.leave(gfn)
                 if self.fault_handler is None:
                     raise
                 self.fault_handler(f.gfn, f.mp)
-        gfn = out[0]
-        self.table.mark_accessed(gfn)
-        return out
+                start = f.mp
+                continue
+            except BaseException:
+                guard.leave(gfn)
+                raise
+            self.table.mark_accessed(gfn)
+            return gfn, off, pfn
 
     def guest_read(self, gva: int, nbytes: int) -> bytes:
-        gfn, mp, inner, pfn = self._resolve(gva)
-        off = mp * self.cfg.mp_bytes + inner
-        if off + nbytes > self.cfg.ms_bytes:
-            raise ValueError("guest access crosses an MS boundary")
-        # may cross MP boundaries within the MS: fault remaining MPs too
-        end_mp = (off + nbytes - 1) // self.cfg.mp_bytes
-        for m in range(mp + 1, end_mp + 1):
-            self._resolve(gva - inner - mp * self.cfg.mp_bytes + m * self.cfg.mp_bytes)
-        view = self.phys.ms_view(pfn)
-        return frame_bytes(view[off : off + nbytes])
+        gfn, off, pfn = self._enter_resolved(gva, nbytes)
+        try:
+            return frame_bytes(self.phys.ms_view(pfn)[off : off + nbytes])
+        finally:
+            self.inflight.leave(gfn)
 
     def guest_write(self, gva: int, data: bytes) -> None:
-        gfn, mp, inner, pfn = self._resolve(gva)
-        off = mp * self.cfg.mp_bytes + inner
-        if off + len(data) > self.cfg.ms_bytes:
-            raise ValueError("guest access crosses an MS boundary")
-        end_mp = (off + len(data) - 1) // self.cfg.mp_bytes
-        for m in range(mp + 1, end_mp + 1):
-            self._resolve(gva - inner - mp * self.cfg.mp_bytes + m * self.cfg.mp_bytes)
-        view = self.phys.ms_view(pfn)
-        view[off : off + len(data)].copy_(host_u8(data))
+        gfn, off, pfn = self._enter_resolved(gva, len(data))
+        try:
+            self.phys.ms_view(pfn)[off : off + len(data)].copy_(host_u8(data))
+        finally:
+            self.inflight.leave(gfn)
 
     # ----------------------------------------------------------- root access
     def root_access(self, gpa: int) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Entry points of the port (``serve``: the elastic-KV serving driver)."""
+"""Entry points of the port (``serve``: the elastic-KV serving driver;
+``train``: the training driver)."""

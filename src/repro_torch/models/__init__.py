@@ -1,3 +1,5 @@
-"""The model stack's decode path, ported: architecture configs
-(``config``), layers, the dense decoder with its paged KV cache
-(``model``) and the carry-over of reference parameters (``convert``)."""
+"""The model stack, ported for the dense and MoE families: architecture
+configs (``config``), layers with the chunked flash attention
+(``layers``), the MoE FFN (``moe``), the model's forward, loss, prefill
+and paged decode (``model``) and the carry-over of reference parameters
+and training state (``convert``)."""

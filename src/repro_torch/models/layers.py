@@ -1,5 +1,6 @@
-"""Core transformer layers for the decode path: RMSNorm, RoPE / M-RoPE,
-single-token decode attention, SwiGLU MLP.
+"""Core transformer layers: RMSNorm, RoPE / M-RoPE, GQA attention with
+chunked (flash-semantics) computation and its backward, single-token
+decode attention, SwiGLU MLP.
 
 Each function follows ``repro/models/layers.py`` operation for operation
 (the same dtypes at the same places). ``decode_attention`` is the plain
@@ -7,13 +8,20 @@ counterpart of the paged kernel's math over an already-gathered KV view;
 the tests hold it against the JAX function, and ``model.decode_step``
 reads KV through ``kernels.ops.paged_decode_attention`` instead.
 
+Attention never materializes the full S x S score matrix: the forward
+walks (query chunk, KV chunk) tiles carrying running (max, denominator,
+accumulator) -- the online softmax -- and saves only the logsumexp; the
+backward recomputes each tile's probabilities from it (the
+FlashAttention-2 recipe, the reference's ``custom_vjp``), as a
+``torch.autograd.Function``. It is plain torch, operation for operation
+the reference's jnp.
+
 The reference's ``shard_ctx`` hints are no-ops without a mesh and are
-left out. Chunked (flash-semantics) attention and ``attention_block``
-come with the forward/training slice.
+left out.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,6 +88,161 @@ def mrope_cos_sin(pos_ids: torch.Tensor, head_dim: int, theta: float,
     return torch.cos(ang), torch.sin(ang)
 
 
+# ----------------------------------------------------- chunked attention
+class _FlashCfg(NamedTuple):
+    causal: bool
+    cq: int
+    ckv: int
+    q_offset: int
+    nkv: int
+    skv: int                     # valid kv length (for padding mask)
+
+
+def _tile_bias(cfg: _FlashCfg, qi: int, kj: int,
+               device) -> torch.Tensor:
+    """2-D (cq, ckv) additive bias for tile (qi, kj): padding + causality."""
+    kpos = kj * cfg.ckv + torch.arange(cfg.ckv, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=device)
+    bias = torch.where(kpos < cfg.skv, zero, neg)[None, :]
+    if cfg.causal:
+        qpos = cfg.q_offset + qi * cfg.cq + torch.arange(cfg.cq, device=device)
+        bias = bias + torch.where(qpos[:, None] >= kpos[None, :], zero, neg)
+    return bias
+
+
+def _flash_fwd_pass(cfg: _FlashCfg, qs: torch.Tensor, ks: torch.Tensor,
+                    vs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qs: (nq, B, cq, H, hd) pre-scaled; ks/vs: (nkv, B, ckv, H, hd).
+
+    Returns out (nq, B, cq, H, hd) and lse (nq, B, H, cq).
+    """
+    nq, B, cq, H, hd = qs.shape
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    outs, lses = [], []
+    for qi in range(nq):
+        qc = qs[qi]
+        m = torch.full((B, H, cq), NEG_INF, **f32)
+        l = torch.zeros((B, H, cq), **f32)
+        o = torch.zeros((B, cq, H, hd), **f32)
+        for kj in range(cfg.nkv):
+            kc, vc = ks[kj], vs[kj]
+            s = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float()
+            s = s + _tile_bias(cfg, qi, kj, qs.device)[None, None]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            a = torch.exp(m - m_new)
+            l = l * a + p.sum(dim=-1)
+            oc = torch.einsum("bhqk,bkhd->bqhd", p.to(vc.dtype), vc)
+            o = o * a.transpose(1, 2)[..., None] + oc.float()
+            m = m_new
+        l = torch.clamp_min(l, 1e-30)
+        outs.append((o / l.transpose(1, 2)[..., None]).to(vs.dtype))
+        lses.append(m + torch.log(l))
+    return torch.stack(outs), torch.stack(lses)
+
+
+def _flash_bwd(cfg: _FlashCfg, qs, ks, vs, out, lse, do):
+    nq, B, cq, H, hd = qs.shape
+    # delta_i = sum_d do_id * o_id  -> (nq, B, H, cq)
+    delta = torch.einsum("nbqhd,nbqhd->nbhq", do.float(), out.float())
+
+    def p_tile(qi, kj):
+        s = torch.einsum("bqhd,bkhd->bhqk", qs[qi], ks[kj]).float()
+        s = s + _tile_bias(cfg, qi, kj, qs.device)[None, None]
+        return torch.exp(s - lse[qi][..., None])          # (B,H,cq,ckv)
+
+    def ds_tile(qi, kj, p):
+        dp = torch.einsum("bqhd,bkhd->bhqk", do[qi].float(), vs[kj].float())
+        return p * (dp - delta[qi][..., None])
+
+    # ---- dq: outer loop over q chunks, inner over kv chunks
+    dqs = []
+    for qi in range(nq):
+        dq = torch.zeros((B, cq, H, hd), dtype=torch.float32, device=qs.device)
+        for kj in range(cfg.nkv):
+            ds = ds_tile(qi, kj, p_tile(qi, kj))
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, ks[kj].float())
+        dqs.append(dq)
+
+    # ---- dk/dv: outer loop over kv chunks, inner over q chunks
+    ckv = ks.shape[2]
+    dks, dvs = [], []
+    for kj in range(cfg.nkv):
+        dk = torch.zeros((B, ckv, H, hd), dtype=torch.float32, device=qs.device)
+        dv = torch.zeros_like(dk)
+        for qi in range(nq):
+            p = p_tile(qi, kj)
+            dv = dv + torch.einsum("bhqk,bqhd->bkhd", p, do[qi].float())
+            ds = ds_tile(qi, kj, p)
+            dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, qs[qi].float())
+        dks.append(dk)
+        dvs.append(dv)
+    return (torch.stack(dqs).to(qs.dtype), torch.stack(dks).to(ks.dtype),
+            torch.stack(dvs).to(vs.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP: the forward saves (q, k, v,
+    out, lse); the backward recomputes the probabilities per tile."""
+
+    @staticmethod
+    def forward(ctx, cfg: _FlashCfg, qs, ks, vs):
+        out, lse = _flash_fwd_pass(cfg, qs, ks, vs)
+        ctx.cfg = cfg
+        ctx.save_for_backward(qs, ks, vs, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, ks, vs, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(ctx.cfg, qs, ks, vs, out, lse, do)
+        return None, dq, dk, dv
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool, chunk_q: int, chunk_kv: int,
+                      scale: Optional[float] = None,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention with the flash backward.
+
+    q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd) with Hq % Hkv == 0 (GQA:
+    K/V are repeated to Hq -- the repeat's own backward sums the grads
+    over the head groups). Returns (B, Sq, Hq, hd).
+    ``q_offset``: absolute position of q[0] (decode: Skv - 1).
+    """
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if Hkv != Hq:
+        rep = Hq // Hkv
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = scale if scale is not None else hd ** -0.5
+    q = (q.float() * scale).to(q.dtype)
+
+    cq = min(chunk_q, Sq)
+    ckv = min(chunk_kv, Skv)
+    pad_q = (-Sq) % cq
+    pad_kv = (-Skv) % ckv
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    nq = (Sq + pad_q) // cq
+    nkv = (Skv + pad_kv) // ckv
+
+    qs = q.reshape(B, nq, cq, Hq, hd).transpose(0, 1)
+    ks = k.reshape(B, nkv, ckv, Hq, hd).transpose(0, 1)
+    vs = v.reshape(B, nkv, ckv, Hq, hd).transpose(0, 1)
+
+    cfg = _FlashCfg(causal=causal, cq=cq, ckv=ckv, q_offset=q_offset,
+                    nkv=nkv, skv=Skv)
+    outs = _Flash.apply(cfg, qs, ks, vs)
+    out = outs.transpose(0, 1).reshape(B, nq * cq, Hq, hd)
+    return out[:, :Sq]
+
+
 # -------------------------------------------------------- decode attention
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: Optional[torch.Tensor] = None,
@@ -112,3 +275,30 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = x @ w_up
     h = F.silu(g) * u
     return h @ w_down
+
+
+# ------------------------------------------------------------ attention op
+def attention_block(x: torch.Tensor, p: Mapping[str, torch.Tensor], cfg,
+                    cos: torch.Tensor, sin: torch.Tensor,
+                    *, causal: bool) -> torch.Tensor:
+    """Full attention sub-layer (projections + rope + chunked attn)."""
+    B, S, D = x.shape
+    hd = cfg.head_dim_
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = chunked_attention(q, k, v, causal=causal,
+                          chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]

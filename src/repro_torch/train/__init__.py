@@ -1,1 +1,2 @@
-"""Step functions over the port's model (``steps``)."""
+"""Step functions over the port's model (``steps``): training, prefill
+and serving."""

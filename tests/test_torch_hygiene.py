@@ -60,7 +60,11 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.benchmarks.metadata, "
             "repro_torch.benchmarks.overcommit, "
             "repro_torch.benchmarks.fault_latency, "
-            "repro_torch.benchmarks.overhead, repro_torch.benchmarks.run; "
+            "repro_torch.benchmarks.overhead, repro_torch.benchmarks.run, "
+            "repro_torch.models.moe, repro_torch.optim.adamw, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint.manager, "
+            "repro_torch.launch.train, repro_torch.examples.quickstart, "
+            "repro_torch.examples.elastic_moe_training; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -153,7 +153,7 @@ def test_init_params_has_the_reference_tree(arch):
             yield from (flat(v, key) if isinstance(v, dict) else [(key, v)])
 
     assert got == dict(flat(shapes))
-    assert all(p.dtype == torch.float32 and not p.requires_grad
+    assert all(p.dtype == torch.float32 and p.requires_grad
                for p in model.parameters())
     ones = [model.final_norm, model.layers[1].ln1, model.layers[2].ln2]
     assert all(torch.equal(t, torch.ones_like(t)) for t in ones)
@@ -188,7 +188,7 @@ def test_cast_params_casts_once_to_compute_dtype():
     assert torch.equal(model.layers[1].attn.wq, want)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "falcon-mamba-7b",
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "falcon-mamba-7b",
                                   "jamba-1.5-large-398b", "hubert-xlarge"])
 def test_other_families_are_not_ported_yet(arch):
     cfg = reduced_config(arch)

@@ -232,3 +232,71 @@ def test_readahead_salvage_matches_reference(sibling_bad):
     assert port[1] == ref[1] and (len(ref[1]) == 1) == sibling_bad
     assert snapshot_diff(ref[2], port[2]) == []
     assert snapshot_diff(ref[3], port[3]) == []
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("access", ["write", "gather"])
+def test_swap_out_waits_for_a_guest_copy_in_flight(access, device,
+                                                  monkeypatch):
+    """A swap-out of an MS whose fast-path access has already translated
+    it, but not yet issued its copy, waits for the copy: the write is not
+    lost in a frame already read and freed, and the gather does not read
+    a frame freed and handed to another MS. The race is forced: the other
+    thread swaps the MS out (then, for the gather, allocates a new MS and
+    fills it) between the access's probe and its copy. On the card the
+    frames, the swap kernels and the copies are the device's."""
+    import threading
+
+    import repro_torch.core.guest as G
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels run only there)")
+    s = T.TaijiSystem(_cfg(T, "default"), device=device)
+    try:
+        ms = s.cfg.ms_bytes
+        g = s.guest.alloc_ms()
+        old, new = bytes([1]) * ms, bytes(range(256)) * (ms // 256)
+        s.guest.write(g, old)
+        racer, waited = [], []
+
+        def swap_out_then_reuse():
+            s.engine.swap_out_ms(g)
+            if access == "gather":
+                s.guest.write(s.guest.alloc_ms(), bytes([0xAB]) * ms)
+
+        def race():
+            th = threading.Thread(target=swap_out_then_reuse)
+            th.start()
+            th.join(0.5)            # blocked in the drain while we copy
+            waited.append(th.is_alive())
+            racer.append(th)
+
+        if access == "write":
+            real = G.host_u8
+
+            def host_u8(data):
+                if not racer:
+                    race()
+                return real(data)
+            monkeypatch.setattr(G, "host_u8", host_u8)
+            s.guest.write(g, new)
+            racer[0].join()
+            monkeypatch.setattr(G, "host_u8", real)
+            assert s.engine.ms_fully_swapped(g)
+            assert s.guest.read(g) == new
+        else:
+            probe = s.guest._batch_probe
+
+            def batch_probe(gv):
+                fast = probe(gv)
+                race()
+                return fast
+            monkeypatch.setattr(s.guest, "_batch_probe", batch_probe)
+            got = s.guest.gather([g])
+            racer[0].join()
+            assert s.engine.ms_fully_swapped(g)
+            assert got[0].tobytes() == old
+        assert waited == [True]
+    finally:
+        s.close()
