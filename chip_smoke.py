@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--managed-ms 1024] [--fleet-node-ms 128]
+    python3 chip_smoke.py [--managed-ms 1024] [--fleet-node-ms 32]
                           [--bench-ms 512] [--seed 0]
 
 Phases, one after another, each fatal on failure (exit code 1), each
@@ -22,7 +22,8 @@ freeing its device memory before the next:
                    shape and the f32/f16 sweep, and the int8 quantize
                    pair bit for bit (tests/test_kernels.py's sweep in
                    f32/f16/bf16, zero, -0.0 and tie MPs, qwen3-4b's KV
-                   block); time kernel, plain version and library call,
+                   block), paged attention also at jamba's and qwen2-vl's
+                   head groups; time kernel, plain version and library call,
                    paged attention also at the kv_len of ``ATTN_SWEEP``,
                    the swap kernels, paged attention and the quantize pair also
                    L2-cold, and with ``--compare-sources DIR`` the
@@ -64,12 +65,13 @@ freeing its device memory before the next:
 9. elastic-serving -- the elastic-serving flow with that geometry: the
                    swap engine hot-upgraded v1 -> v2 halfway, under load;
 10. expert-cache -- deepseek-moe-16b's routed experts at full width (one
-                   34.6 MB MS of 16 MPs per expert), 4 MoE layers of 64,
-                   HBM for half: 4 rounds of 8-token decode batches
+                   34.6 MB MS of 16 MPs per expert), 1 MoE layer of 64,
+                   HBM for half: 2 rounds of 8-token decode batches
                    routed top-6 from a Zipf(1.2) popularity, dispatched
                    layer by layer (swap in, pin, gather), the active
-                   experts written back updated every 2nd round, every
-                   expert read back bit for bit;
+                   experts written back updated in the 2nd round, one
+                   swapped-out expert read unpinned each round (its MPs
+                   fault in), every expert read back bit for bit;
 11. fleet       -- 4 nodes of ``--fleet-node-ms`` managed 2 MiB MSs each
                    in HBM, through ``repro_torch.benchmarks.fleet``: the
                    paper trace (rolling hot-upgrade) and the chaos trace
@@ -104,14 +106,33 @@ freeing its device memory before the next:
                    quickstart's 100M config, a checkpoint at step 10 of
                    20 restored bit for bit into a fresh state and resumed;
                    (d) the elastic MoE training example at deepseek-moe-
-                   16b's full width, 4 layers, its first MoE layer's 64
-                   experts in an expert cache with HBM for 32, every expert
-                   bit-exact at the end, then paged decode against
-                   prefill.
+                   16b's full width, 4 layers, one step, its first MoE
+                   layer's 64 experts in an expert cache with HBM for 32,
+                   every expert bit-exact at the end, then paged decode against
+                   prefill;
+14. families    -- the SSM, hybrid, VLM and audio families: (a) three
+                   train steps of each at its reduced config (f32) on the
+                   card and on the CPU from the same state and batches,
+                   and for the decoder families token-by-token decode
+                   against the forward on the card; (b) falcon-mamba-7b
+                   at full width and depth (bf16): 8 requests of 256
+                   prompt tokens through ``serve_step``, 64 greedy tokens,
+                   every position's logits against one forward (decode
+                   step ms, tokens/s, byte bound, device busy share,
+                   peak memory), then ``run_training`` cut to 16 of 64
+                   layers, 3 steps of 4 x 512; (c) one full-width jamba
+                   group (8 layers, 4 of its 16 experts), 8 x (200 + 16)
+                   decoded against the forward, the paged kernel launched
+                   at every step; (d) qwen2-vl-2b at full width, its
+                   256-token vision prefix fed as ``input_embeds`` with
+                   M-RoPE positions, 4 x 320 decoded against the forward,
+                   every layer through the paged kernel; (e)
+                   hubert-xlarge at full width, 3 steps of 4 x 1024
+                   frames through ``run_training``.
 
 The last two lines of standard output are the kernel table and the
-device line as JSON; the ``{"bench": ...}`` and ``{"train": ...}``
-lines come before them. No
+device line as JSON; the ``{"bench": ...}``, ``{"train": ...}`` and
+``{"families": ...}`` lines come before them. No
 card, or no ``src/repro_torch`` beside this file: a non-zero exit and no
 result.
 """
@@ -204,6 +225,9 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen3-4b", 8, 512, 64
 SERVE_MAX_SEQ = 2048
 # the paged-attention tolerances of tests/test_kernels.py
 ATTN_TOL = {"float32": 2e-5, "float16": 2e-2, "bfloat16": 2e-2}
+# the families' (query heads, KV heads) of 128 that decode through the
+# paged kernel: jamba's group of 8, qwen2-vl's of 6 (phase 14)
+ATTN_GROUPS = {"jamba-1.5-large-398b": (64, 8), "qwen2-vl-2b": (12, 2)}
 # the quantize pair at qwen3-4b's KV block: the elastic-KV phase's 24
 # physical blocks of 64 tokens x 36 layers x K+V x 8 heads x 128, bf16,
 # 8 MPs each
@@ -222,14 +246,16 @@ HOT_SWITCH_FULL_MS = 4096
 FAULT_SAMPLE_MS = 256
 
 # the expert-cache phase: deepseek-moe-16b's routed experts at full width
-# (64 of (3, 2048, 1408) float32 a layer: w_gate, w_up, w_down^T) in 4 of
+# (64 of (3, 2048, 1408) float32 a layer: w_gate, w_up, w_down^T) in 1 of
 # its 27 MoE layers, HBM for half of them; each round routes a decode
 # batch of 8 tokens top-6 per layer from a Zipf(1.2) popularity and
 # dispatches layer by layer; every 2nd round writes the active experts
-# back updated (2 update rounds of 4); the residency of each layer's 16
+# back updated (1 update round of 2); the residency of each layer's 16
 # most-routed experts is reported against the rest. A round swaps ~45
-# experts out and in (23-24 s on the H100's host), so 4 rounds
-EXPERT_ARCH, EXPERT_LAYERS, EXPERT_ROUNDS = "deepseek-moe-16b", 4, 4
+# experts out and in over 4 layers (23-29 s on the H100's host): 1
+# layer and 2 rounds, cut from 4 and 4 for the script's time limit
+# (PERF.md §4)
+EXPERT_ARCH, EXPERT_LAYERS, EXPERT_ROUNDS = "deepseek-moe-16b", 1, 2
 EXPERT_TOKENS, EXPERT_ZIPF, EXPERT_UPDATE_EVERY, EXPERT_HOT = 8, 1.2, 2, 16
 # float32 weights compress to ~0.93 under zlib level 1, at ~30 MB/s a
 # host core: the expert cache's backend compresses each expert (one MS)
@@ -237,8 +263,12 @@ EXPERT_TOKENS, EXPERT_ZIPF, EXPERT_UPDATE_EVERY, EXPERT_HOT = 8, 1.2, 2, 16
 EXPERT_EXTENT_ROWS, EXPERT_ZLIB_WORKERS = 2, 8
 # the fleet phase: 4 nodes of the paper's geometry in 2 failure domains,
 # each node's frames in HBM; the paper trace's and the chaos trace's fault
-# bursts and the chaos trace's live migrations
-FLEET_NODES, FLEET_PAPER_BURST, FLEET_CHAOS_BURST, FLEET_MIGRATIONS = 4, 20000, 6000, 8
+# bursts and the chaos trace's live migrations. Each trace's front fill
+# writes 1.35 (paper) or 1.1 (chaos) times the fleet's managed MSs, MP by
+# MP: at 128-MS nodes 390209 + 294950 ops, 236 s for both traces twice on
+# the H100's host; at 32-MS nodes (``--fleet-node-ms``) and these bursts,
+# cut from 20000 and 6000 for the script's time limit (PERF.md §4)
+FLEET_NODES, FLEET_PAPER_BURST, FLEET_CHAOS_BURST, FLEET_MIGRATIONS = 4, 8000, 3000, 8
 # device memory the chaos replays may leave allocated (their killed and
 # recovered nodes' frames must all be gone; one node's are 100s of MB)
 FLEET_KEPT_SLACK = 4 << 20
@@ -310,9 +340,65 @@ CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ, CKPT_LOSS_TOL = 20, 10, 8, 256, 1e-2
 # example's batch 4 x 64; then 8 decode steps at batch 4 against
 # prefill_step, within PREFILL_DECODE_TOL. All 64 experts are routed
 # every step, so each step swaps ~140 experts out and ~140 in
-# through host zlib: 55-77 s a step on the H100's host. 4 steps, cut from
-# 6 for the script's time limit (PERF.md §4)
-MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_BATCH, MOE_SEQ, MOE_DECODE = 4, 4, 4, 64, 8
+# through host zlib: 55-77 s a step on the H100's host. 1 step, cut from
+# 6, 4 and then 2 for the script's time limit, the last two cuts to pay
+# for phase 14 (PERF.md §4)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_BATCH, MOE_SEQ, MOE_DECODE = 4, 1, 4, 64, 8
+# the families phase (14). (a) card-against-CPU parity of the four
+# families at their reduced configs (f32, attention tiles 32/64): three
+# train steps of 2 x 128 on each, within TRAIN_PARITY_TOL / _ABS; for
+# the three decoder families also token-by-token decode on the card
+# against the card's forward at every position, within relative 1e-4
+# (tests/test_torch_models.py's f32 decode tolerance; also (b)'s and
+# (c)'s f32 readings, below)
+FAMILY_ARCHS = ("falcon-mamba-7b", "jamba-1.5-large-398b", "qwen2-vl-2b",
+                "hubert-xlarge")
+FAMILY_F32_DECODE_TOL = 1e-4
+# (b) falcon-mamba-7b at full width and depth (64 layers, d 4096, DI
+# 8192, 7.27 B parameters, bf16): 8 requests of 256 prompt tokens through
+# serve_step, 64 greedy tokens, then one forward over the 320 tokens
+# (chunk 128: the last chunk padded) against the decode's logits at every
+# position; then run_training at full width cut to 16 of 64 layers (2.2
+# B; f32 weights, gradients and AdamW moments, bf16 compute), 3 steps of
+# 4 x 512
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = "falcon-mamba-7b", 8, 256, 64
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 16, 3, 4, 512
+# (c) jamba-1.5-large-398b at full width, one period: a group of 8 layers
+# (7 mamba, attention at 4; MLP and MoE FFNs in turn), with 4 of the 16
+# routed experts (top-2, the router over the 4 held): one group's 4 MoE
+# layers of 16 experts at 8192 x 24576 are 77 GB in bf16; with 4 the
+# group is 16.2 B parameters, 32.5 GB. The capacity factor is E / top-k
+# (2.0), so that the forward drops no token: decode, one token a
+# sequence, never drops, and a dropped token would make the two differ.
+# 8 requests of 200 prompt tokens and 16 greedy tokens (chunk 64: 216
+# positions, the last chunk padded)
+HYBRID_ARCH, HYBRID_EXPERTS, HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN = \
+    "jamba-1.5-large-398b", 4, 8, 200, 16
+# (d) qwen2-vl-2b at full width (28 layers, 12/2 heads, M-RoPE; f32
+# parameters cast once to bf16): 4 requests of the config's 256-token
+# vision prefix and 64 text tokens from the pipeline, teacher-forced
+# through serve_step (input_embeds over the prefix, mrope_pos at every
+# step)
+VLM_ARCH, VLM_BATCH, VLM_TEXT = "qwen2-vl-2b", 4, 64
+# (e) hubert-xlarge at full width (48 layers, non-causal, frontend 512 ->
+# 1280): run_training, 3 steps of 4 x 1024 frames
+AUDIO_ARCH, AUDIO_STEPS, AUDIO_BATCH, AUDIO_FRAMES = "hubert-xlarge", 3, 4, 1024
+# decode against the forward at every position, relative to the largest
+# forward logit, from sound decodes and planted faults
+# (tools/prefill_decode_spread.py --families; PERF.md §6). In bf16:
+# falcon-mamba 1e-1 (sound 2.3e-2 to 2.4e-2; a conv window not shifted
+# 0.87; a lost SSM state, in decode or in a forward chunk, reads as
+# sound: at the initial dt ~ 1 each state decays by e^-1 or faster a
+# step, and what it carries is below bf16 rounding); qwen2-vl 6e-2
+# (sound 3.9e-2 to 4.2e-2; one lost K/V write 7.7e-2 to 1.0e-1, kv_len
+# one short 0.25, no M-RoPE ids 0.77); jamba's group not held (None): in
+# 88 to 112 of its 1728 positions bf16 rounding sends a token to another
+# expert in one of the 4 MoE layers than the forward does (0.69 to
+# 0.81; 5.7e-2 to 6.1e-2 where every route agrees). So (b) and (c) also
+# decode the same tokens with the weights cast to f32 and f32 compute,
+# within FAMILY_F32_DECODE_TOL: sound 3.8e-6 to 4.1e-6 (falcon-mamba)
+# and 1.8e-5 to 2.4e-5 (jamba); every fault 9.0e-4 or more
+FAMILY_DECODE_TOL = {SSM_ARCH: 1e-1, HYBRID_ARCH: None, VLM_ARCH: 6e-2}
 
 
 def fail(msg: str) -> None:
@@ -656,6 +742,27 @@ def check_kernels(torch, ops, ref, seed: int) -> dict:
     return results
 
 
+def _attn_library(torch, q, pool, table, kv: int):
+    """The library call for paged decode attention at every sequence's
+    length ``kv``: ``index_select`` of the table's blocks, then
+    ``scaled_dot_product_attention`` with GQA."""
+    import torch.nn.functional as F
+    B, H, hd = q.shape
+    _, bt, _, KV, _ = pool.shape
+    n_blk = -(-kv // bt)
+    pos = torch.arange(n_blk * bt, device=q.device)
+    mask = (pos[None, :] < kv)[:, None, None, :]              # (1,1,1,S)
+    idx = table[:, :n_blk].reshape(-1)
+
+    def call():
+        kvs = pool.index_select(0, idx).view(B, n_blk * bt, 2, KV, hd)
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kvs[:, :, 0].transpose(1, 2),
+            kvs[:, :, 1].transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)[:, :, 0]
+    return call
+
+
 def check_paged_attention(torch, ops, ref, seed: int) -> dict:
     """Phase 2, paged decode attention: the kernel against its plain
     version within the tolerances of tests/test_kernels.py -- at the serve
@@ -665,8 +772,9 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
     bf16 pair; then timed at kv_len 512 against the plain version and
     ``index_select`` + ``scaled_dot_product_attention``, L2-warm and
     L2-cold, and at each kv_len of ``ATTN_SWEEP`` beside the library
-    call, L2-warm."""
-    import torch.nn.functional as F
+    call, L2-warm. The same check and times (kernel, plain version,
+    library call, kv_len 512) at the families' head groups of 128,
+    ``ATTN_GROUPS``: jamba's 64/8 and qwen2-vl's 12/2."""
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(seed + 3)
 
@@ -679,9 +787,12 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
 
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     main_shape = (SERVE_BATCH, 32, 8, 128, 64, SERVE_MAX_SEQ // 64)
-    cases = [("main", main_shape, bf16, bf16, [0, 1, 63, 64, 65, 512, 2048, 1000]),
+    main_lens = [0, 1, 63, 64, 65, 512, 2048, 1000]
+    cases = [("main", main_shape, bf16, bf16, main_lens),
              ("reduced", (2, 4, 2, 32, 8, 4), f32, bf16, [0, 29]),
              ("mqa48", (2, 48, 1, 128, 64, 4), bf16, bf16, [200, 256])]
+    cases += [(arch, (SERVE_BATCH, H, KV, 128, 64, SERVE_MAX_SEQ // 64), bf16,
+               bf16, main_lens) for arch, (H, KV) in ATTN_GROUPS.items()]
     for i, (B, H, KV, hd, bt, mbs) in enumerate([(2, 8, 2, 32, 8, 4),
                                                  (1, 4, 4, 64, 16, 2),
                                                  (3, 16, 1, 32, 8, 3)]):
@@ -706,24 +817,33 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
 
     # timing at the serve phase's shape: every sequence at kv_len 512
     # (the kernel table's row), then the sweep, L2-warm, with the library
-    # call beside each, and the kv_len 512 row L2-cold
+    # call beside each, and the kv_len 512 row L2-cold; then at the
+    # families' head groups
     B, H, KV, hd, bt, mbs = main_shape
     q, pool, table, kv_len = inputs(*main_shape, bf16, bf16, [512] * B)
     out = torch.empty_like(q)
+    groups = {}
+    for arch, (Hg, KVg) in ATTN_GROUPS.items():
+        shape = (B, Hg, KVg, hd, bt, mbs)
+        a = inputs(*shape, bf16, bf16, [512] * B)
+        o = torch.empty_like(a[0])
+        kv_bytes = B * 512 * 2 * KVg * hd * 2
+        io_bytes = 2 * a[0].numel() * 2 + a[2].numel() * 4 + B * 4
+        bnd = bound_us(kv_bytes + io_bytes, 4 * B * Hg * 512 * hd, FP32_OPS_PER_S)
+        groups[arch] = dict(
+            shape=f"q {tuple(a[0].shape)} bf16, pool {tuple(a[1].shape)} bf16, "
+                  f"group {Hg // KVg}, kv_len 512",
+            max_abs_err=err[arch],
+            kernel_us=time_us(torch, lambda a=a, o=o: ops.launch_paged_attn(*a, o)),
+            plain_us=time_us(torch, lambda a=a: ref.paged_decode_attention(*a),
+                             inner=10),
+            library_us=time_us(torch, _attn_library(torch, *a[:3], 512)),
+            bound_us=bnd[0], bound_by=bnd[1])
+        del a, o
+    log(json.dumps({"paged_attention_groups": groups, "tolerance": ATTN_TOL}))
 
     def library(kv):
-        n_blk = -(-kv // bt)
-        pos = torch.arange(n_blk * bt, device=dev)
-        mask = (pos[None, :] < kv)[:, None, None, :]              # (1,1,1,S)
-        idx = table[:, :n_blk].reshape(-1)
-
-        def call():
-            kvs = pool.index_select(0, idx).view(B, n_blk * bt, 2, KV, hd)
-            return F.scaled_dot_product_attention(
-                q[:, :, None, :], kvs[:, :, 0].transpose(1, 2),
-                kvs[:, :, 1].transpose(1, 2), attn_mask=mask,
-                enable_gqa=True)[:, :, 0]
-        return call
+        return _attn_library(torch, q, pool, table, kv)
 
     def bound(kv):
         kv_bytes = B * kv * 2 * KV * hd * pool.element_size()
@@ -2027,8 +2147,8 @@ def expert_cache_phase(torch, np, core, ops, seed: int) -> dict:
     frames hold half the experts; each round routes every layer (note
     the routing, swap in and pin its active set, gather it) and checks
     every gathered expert bit for bit against the weights last put, then
-    reads one random expert unpinned (a swapped one faults back in) and
-    steps the background (LRU aging, reclaim)."""
+    reads one swapped-out expert unpinned (it faults back in through the
+    plain scatter) and steps the background (LRU aging, reclaim)."""
     import zlib
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2114,8 +2234,11 @@ def expert_cache_phase(torch, np, core, ops, seed: int) -> dict:
                         for e, w in zip(active, new):
                             weights[layer][e] = w
                             cache.put_expert(e, w)
-                # one expert read unpinned: its swapped MPs fault back in
-                layer, e = int(rng.integers(n_layers)), int(rng.integers(n_exp))
+                # one swapped-out expert read unpinned: its MPs fault back in
+                layer = int(rng.integers(n_layers))
+                out_now = [x for x in range(n_exp) if int(s.virt.table.pfn[
+                    caches[layer]._view_of(x).gfn]) == NO_PFN]
+                e = int(rng.choice(out_now)) if out_now else int(rng.integers(n_exp))
                 mismatches += not same(caches[layer].get_expert(e), weights[layer][e])
                 space.step_background(2)
                 if (r + 1) % EXPERT_UPDATE_EVERY == 0:
@@ -2477,11 +2600,15 @@ def _copy_state(torch, state, device):
                                  [t.to(device, copy=True) for t in state.opt.nu]))
 
 
-def train_parity(torch, seed: int) -> dict:
-    """Phase 13 (a): three train steps of reduced qwen3-4b and
-    deepseek-moe-16b (f32) from the same state and batches on the card and
-    on the CPU; loss, grad norm and every parameter within the CPU
-    parity test's tolerances."""
+def train_parity(torch, ops, seed: int, archs, where: str,
+                 decode: bool = False) -> dict:
+    """Phase 13 (a) and 14 (a): three train steps of each of ``archs`` at
+    its reduced config (f32) from the same state and batches on the card
+    and on the CPU; loss, grad norm and every parameter within the CPU
+    parity test's tolerances. With ``decode``, first, on the initial
+    parameters, each decoder's token-by-token decode on the card against
+    the card's forward within FAMILY_F32_DECODE_TOL (a near-tie in a
+    trained router can send a token elsewhere in one of the two)."""
     import dataclasses
 
     from repro_torch.configs.reduce import reduced_config
@@ -2492,11 +2619,21 @@ def train_parity(torch, seed: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     out = {}
-    for arch in TRAIN_PARITY_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(reduced_config(arch), attn_chunk_q=32,
                                   attn_chunk_kv=64)
         cpu = S.init_train_state(cfg, opt, seed=seed, device="cpu")
         gpu = _copy_state(torch, cpu, "cuda")
+        out[arch] = {}
+        if decode and cfg.family != "audio":
+            # 2 x 30 tokens: a padded chunk, and a MoE capacity of all 60
+            # (the forward drops no token, as decode never does)
+            b = S.to_device(SyntheticPipeline(cfg, 2, 30, seed=seed + 1).next_batch(),
+                            "cuda")
+            r, _ = decode_against_forward(torch, ops, gpu.model, cfg, b, 0)
+            _check_decode(cfg, r, FAMILY_F32_DECODE_TOL, f"{where}: {arch}")
+            out[arch].update(decode_vs_forward_rel_err=r["decode_vs_forward_rel_err"],
+                             paged_attn_launches=r["paged_attn_launches"])
         pipe = SyntheticPipeline(cfg, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, seed=seed)
         worst = {"loss": 0.0, "grad_norm": 0.0}
         for _ in range(TRAIN_PARITY_STEPS):
@@ -2506,19 +2643,19 @@ def train_parity(torch, seed: int) -> dict:
             for k in worst:
                 a, g = float(mc[k]), float(mg[k])
                 if not (math.isfinite(g) and abs(g - a) <= TRAIN_PARITY_TOL * abs(a)):
-                    fail(f"train-parity: {arch} {k} {g} on the card, {a} on the CPU")
+                    fail(f"{where}: {arch} {k} {g} on the card, {a} on the CPU")
                 worst[k] = max(worst[k], abs(g - a) / abs(a))
         param_err, param_name = 0.0, None
         for (name, pc), pg in zip(cpu.model.named_parameters(), gpu.model.parameters()):
             err = float((pg.detach().cpu() - pc.detach()).abs().max())
             lim = max(TRAIN_PARITY_TOL * float(pc.detach().abs().max()), TRAIN_PARITY_ABS)
             if not err <= lim:
-                fail(f"train-parity: {arch} {name} differs by {err} (> {lim})")
+                fail(f"{where}: {arch} {name} differs by {err} (> {lim})")
             if err > param_err:
                 param_err, param_name = err, name
-        out[arch] = {"loss_rel_err": worst["loss"],
-                     "grad_norm_rel_err": worst["grad_norm"],
-                     "param_max_abs_err": param_err, "param_worst": param_name}
+        out[arch].update(loss_rel_err=worst["loss"],
+                         grad_norm_rel_err=worst["grad_norm"],
+                         param_max_abs_err=param_err, param_worst=param_name)
         del cpu, gpu
     free_device(torch)
     return out
@@ -2775,7 +2912,7 @@ def train_elastic_moe(torch, ops, core, seed: int) -> dict:
     check_swap_launches("train-moe", launches, SWAP_OUT_IN + ("scatter_verified",))
     model = r["state"].model
     n_params = sum(p.numel() for p in model.parameters())
-    steady = sorted(r["step_ms"][1:])
+    steady = sorted(r["step_ms"][1:] or r["step_ms"])   # one step: its own
     out = {"arch": cfg.name, "layers": cfg.n_layers,
            "layers_full": get_config(EXPERT_ARCH).n_layers, "params": n_params,
            "state_gb": n_params * 16 / 1e9, "batch": MOE_BATCH, "seq": MOE_SEQ,
@@ -2809,7 +2946,7 @@ def train_elastic_moe(torch, ops, core, seed: int) -> dict:
 def train_phase(torch, ops, core, seed: int, smi: str) -> dict:
     """Phase 13: training and prefill of the dense and MoE families."""
     t0 = time.perf_counter()
-    parity = train_parity(torch, seed)
+    parity = train_parity(torch, ops, seed, TRAIN_PARITY_ARCHS, "train-parity")
     log(f"train-parity: {json.dumps(parity)}")
     full = train_full_width(torch, ops, seed, smi)
     ckpt = train_checkpoint(torch, seed)
@@ -2824,12 +2961,307 @@ def train_phase(torch, ops, core, seed: int, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- families
+def decode_against_forward(torch, ops, model, cfg, batch: dict, gen: int
+                           ) -> tuple:
+    """``batch``'s tokens (B, P) through ``serve_step`` one position at a
+    time -- for the VLM family with ``input_embeds`` over the vision
+    prefix and ``mrope_pos`` at every step -- then ``gen`` greedy tokens;
+    then one ``forward`` over the P + gen tokens fed, its logits against
+    the decode's at every position (the pool in the compute dtype): the
+    largest difference relative to the largest forward logit, the share
+    of equal argmaxes, the paged launches, the greedy steps' wall times.
+    Returns (result, extras): the cache, the next greedy token, the
+    tokens fed (B, P + gen) and each position's error (B, P + gen)."""
+    from repro_torch.models import model as M
+    from repro_torch.train import steps as S
+
+    tokens = batch["tokens"]
+    B, P = tokens.shape
+    T = P + gen
+    bt = cfg.kv_block_tokens
+    nv = batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
+    cache = M.init_cache(cfg, B, -(-T // bt) * bt,
+                         dtype=M.DTYPES[cfg.compute_dtype], device="cuda")
+    before = ops.launches.get("paged_attn", 0)
+    fed, got = [tokens[:, t] for t in range(P)], []
+    t0 = time.perf_counter()
+    for t in range(P):
+        mp = batch["mrope_pos"][:, :, t:t + 1] if "mrope_pos" in batch else None
+        ie = batch["vision_embeds"][:, t] if t < nv else None
+        logits, cache = S.serve_step(model, tokens[:, t], cache, cfg, mp, ie)
+        got.append(logits)
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    tok, step_ms = logits.argmax(-1), []
+    t_gen = time.perf_counter()
+    for _ in range(gen):
+        t1 = time.perf_counter()
+        fed.append(tok)
+        logits, cache = S.serve_step(model, tok, cache, cfg)
+        got.append(logits)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    gen_s = time.perf_counter() - t_gen
+    launches = ops.launches.get("paged_attn", 0) - before
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        seq = torch.stack([t.long() for t in fed], 1)
+        hidden, _ = M.forward(model, cfg, dict(batch, tokens=seq), remat=False)
+        want = M.logits_from_hidden(model, cfg, hidden)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    got = torch.stack(got, 1)
+    finite = bool(torch.isfinite(got).all() & torch.isfinite(want).all())
+    pos_err = torch.stack([(got[:, t].float() - want[:, t].float()).abs().amax(-1)
+                           for t in range(T)], 1) / want.abs().max().float()
+    r = {"batch": B, "prompt_tokens": P, "new_tokens": gen, "positions": T,
+         "prompt_steps_s": prompt_s, "decode_window_s": gen_s,
+         "decode_step_ms": step_ms, "forward_ms": forward_ms,
+         "decode_vs_forward_rel_err": float(pos_err.max()) if finite else math.inf,
+         "argmax_equal": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+         "paged_attn_launches": launches}
+    del got, want, hidden
+    return r, {"cache": cache, "next_token": tok, "tokens": seq, "pos_err": pos_err}
+
+
+def _check_decode(cfg, r: dict, tol, where: str) -> None:
+    """Every attention layer of every decode step launched the paged
+    kernel once; decode within ``tol`` of the forward (``None``: not
+    held to one)."""
+    from repro_torch.models import model as M
+    want = M.attn_layer_count(cfg) * r["positions"]
+    if r["paged_attn_launches"] != want:
+        fail(f"{where}: {r['paged_attn_launches']} paged-attention launches, "
+             f"{want} expected ({M.attn_layer_count(cfg)} attention layers x "
+             f"{r['positions']} steps)")
+    if tol is not None and not r["decode_vs_forward_rel_err"] < tol:
+        fail(f"{where}: decode and forward logits differ by relative "
+             f"{r['decode_vs_forward_rel_err']} (tolerance {tol})")
+
+
+def family_model(torch, part: str, seed: int) -> tuple:
+    """(cfg, bf16 model on the card, decode batch on the card, greedy
+    tokens) of phase 14's part ``ssm`` (b), ``hybrid`` (c) or ``vlm``
+    (d); the decode batch's tokens are drawn from ``seed``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import steps as S
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 17)
+    if part == "vlm":
+        cfg = get_config(VLM_ARCH)
+        nv = cfg.max_vision_tokens
+        batch = S.to_device(SyntheticPipeline(cfg, VLM_BATCH, nv + VLM_TEXT,
+                                              seed=seed).next_batch(), "cuda")
+        batch = {k: batch[k] for k in ("tokens", "vision_embeds", "mrope_pos")}
+        gen = 0
+    else:
+        if part == "ssm":
+            cfg, B, P, gen = get_config(SSM_ARCH), SSM_BATCH, SSM_PROMPT, SSM_GEN
+        else:
+            full = get_config(HYBRID_ARCH)
+            cfg = dataclasses.replace(
+                full, n_layers=full.hybrid_group,
+                moe=dataclasses.replace(full.moe, n_routed=HYBRID_EXPERTS,
+                                        capacity_factor=HYBRID_EXPERTS
+                                        / full.moe.top_k))
+            B, P, gen = HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, P), generator=g).cuda()}
+    model = M.cast_params(M.init_params(cfg, seed=seed, device="cuda"))
+    return cfg, model, batch, gen
+
+
+def _params_b(model) -> float:
+    return sum(p.numel() for p in model.parameters()) / 1e9
+
+
+def _decode_bound_ms(cfg, model, r: dict) -> tuple:
+    """The decode step's byte bound: every weight read once in its dtype
+    (the embedding only for the batch's rows), the mamba states read and
+    written once, each attention layer's K/V at the greedy window's mean
+    length read once. Returns (ms, bytes)."""
+    from repro_torch.models import model as M
+    B = r["batch"]
+    w = sum(p.numel() * p.element_size() for p in model.parameters())
+    w -= model.embed.numel() * model.embed.element_size()
+    w += B * cfg.d_model * model.embed.element_size()
+    nm = M.mamba_layer_count(cfg)
+    state = 0 if cfg.mamba is None else 2 * 4 * nm * B * cfg.d_inner * (
+        cfg.mamba.d_conv - 1 + cfg.mamba.d_state)
+    mean_len = r["prompt_tokens"] + (r["new_tokens"] + 1) / 2
+    kv = (M.attn_layer_count(cfg) * B * mean_len * 2 * cfg.n_kv_heads
+          * cfg.head_dim_ * 2)
+    nbytes = w + state + kv
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def family_decode(torch, ops, part: str, seed: int, smi: str,
+                  profile_steps: int = 0) -> dict:
+    """Phase 14 (b), (c) or (d)'s decode: ``family_model``'s bf16 model
+    and batch through ``decode_against_forward`` within
+    FAMILY_DECODE_TOL (jamba's bf16 reading is reported, not held:
+    FAMILY_DECODE_TOL); decode step ms (median of the greedy steps),
+    tokens/s and the byte bound where there are greedy steps; with
+    ``profile_steps`` the device busy share of that many more steps;
+    peak memory. For the mamba families (b) and (c) then the same fed
+    tokens again with the weights cast to f32 and f32 compute, within
+    FAMILY_F32_DECODE_TOL: in bf16 a lost SSM state is below rounding."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import steps as S
+
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, batch, gen = family_model(torch, part, seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    where = f"families-{part}"
+    tol = FAMILY_DECODE_TOL[cfg.name]
+    r, ex = decode_against_forward(torch, ops, model, cfg, batch, gen)
+    _check_decode(cfg, r, tol, where)
+    r.update(arch=cfg.name, layers=cfg.n_layers, params_b=_params_b(model),
+             setup_s=setup_s, tolerance=tol)
+    if gen:
+        steps = sorted(r["decode_step_ms"])
+        r.update(decode_step_ms_median=steps[len(steps) // 2],
+                 decode_step_ms_mean=r["decode_window_s"] / gen * 1e3,
+                 tokens_per_s=r["batch"] * gen / r["decode_window_s"])
+        r["step_bound_ms"], r["step_bound_bytes"] = _decode_bound_ms(cfg, model, r)
+    if profile_steps:
+        cache, tok = ex["cache"], ex["next_token"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profile_steps):
+                logits, cache = S.serve_step(model, tok, cache, cfg)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        dev_us, _, top = _device_times(torch, prof)
+        r.update(profiled_step_ms=window_us / profile_steps / 1e3,
+                 device_us_per_step=(None if dev_us is None
+                                     else dev_us / profile_steps),
+                 device_busy_share=(None if dev_us is None else
+                                    dev_us / profile_steps
+                                    / (r["decode_step_ms_mean"] * 1e3)),
+                 device_top_us=top)
+        del cache, prof
+    r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    msg = (f"{where}: {cfg.name} {cfg.n_layers} layers, {r['params_b']:.3f} B "
+           f"params bf16, {r['batch']} x {r['positions']} positions "
+           f"({r['prompt_tokens']} fed + {gen} greedy); decode against forward: "
+           f"relative {r['decode_vs_forward_rel_err']:.2e} (tolerance {tol}), "
+           f"argmax equal {r['argmax_equal']:.3f}; {r['paged_attn_launches']} "
+           f"paged launches")
+    if gen:
+        msg += (f"; decode step {r['decode_step_ms_mean']:.2f} ms (median "
+                f"{r['decode_step_ms_median']:.2f}), {r['tokens_per_s']:.1f} "
+                f"tokens/s, byte bound {r['step_bound_ms']:.3f} ms")
+    if profile_steps:
+        msg += f"; device busy {r['device_busy_share']}"
+    log(f"{msg}; peak {r['peak_memory_gb']:.2f} GB; {smi}")
+    if cfg.mamba is not None:
+        tokens = ex["tokens"]
+        del ex
+        free_device(torch)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        model.float()
+        r32, _ = decode_against_forward(torch, ops, model, cfg32,
+                                        {"tokens": tokens}, 0)
+        _check_decode(cfg32, r32, FAMILY_F32_DECODE_TOL, f"{where} f32")
+        r["f32"] = {k: r32[k] for k in ("positions", "forward_ms",
+                                        "decode_vs_forward_rel_err",
+                                        "argmax_equal", "paged_attn_launches")}
+        r["f32"].update(tolerance=FAMILY_F32_DECODE_TOL,
+                        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        r["paged_attn_launches"] += r32["paged_attn_launches"]
+        log(f"{where}: the same {r['batch']} x {r32['positions']} tokens in f32: "
+            f"decode against forward relative "
+            f"{r32['decode_vs_forward_rel_err']:.2e} (tolerance "
+            f"{FAMILY_F32_DECODE_TOL}), argmax equal {r32['argmax_equal']:.3f}; "
+            f"peak {r['f32']['peak_memory_gb']:.2f} GB; {smi}")
+    del model, batch
+    free_device(torch)
+    return r
+
+
+def family_train(torch, part: str, seed: int, smi: str) -> dict:
+    """Phase 14 (b)'s training (falcon-mamba-7b at full width, 16 of 64
+    layers, f32 parameters) or (e) (hubert-xlarge at full width) through
+    ``run_training``: step ms and peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_training
+
+    if part == "ssm":
+        cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_TRAIN_LAYERS,
+                                  param_dtype="float32")
+        steps, B, S = SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ
+    else:
+        cfg = get_config(AUDIO_ARCH)
+        steps, B, S = AUDIO_STEPS, AUDIO_BATCH, AUDIO_FRAMES
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = run_training(cfg, steps=steps, batch=B, seq=S, lr=TRAIN_LR,
+                     ckpt_dir=None, ckpt_every=steps, seed=seed,
+                     log_every=steps, device="cuda")
+    run_s = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in r["loss"] + r["grad_norm"]):
+        fail(f"families-{part}: losses {r['loss']}, grad norms {r['grad_norm']}")
+    n = sum(p.numel() for p in r["state"].model.parameters())
+    steady = sorted(r["step_ms"][1:])
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "layers_full": get_config(cfg.name).n_layers, "params_b": n / 1e9,
+           "state_gb": n * 16 / 1e9, "batch": B, "seq": S, "steps": steps,
+           "loss": r["loss"], "grad_norm": r["grad_norm"], "step_ms": r["step_ms"],
+           "step_ms_median": steady[len(steady) // 2],
+           "tokens_per_s": B * S / steady[len(steady) // 2] * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "run_s": run_s}
+    log(f"families-{part}-train: {cfg.name} {cfg.n_layers}/{out['layers_full']} "
+        f"layers, {n / 1e9:.3f} B params ({out['state_gb']:.1f} GB of f32 params, "
+        f"grads and moments), {steps} steps of {B} x {S}: step "
+        f"{out['step_ms_median']:.1f} ms (median of steps 2-{steps}), losses "
+        f"{[round(x, 4) for x in r['loss']]}, peak {out['peak_memory_gb']:.2f} GB; {smi}")
+    del r
+    free_device(torch)
+    return out
+
+
+def families_phase(torch, ops, seed: int, smi: str) -> dict:
+    """Phase 14: the SSM, hybrid, VLM and audio families."""
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    parity = train_parity(torch, ops, seed, FAMILY_ARCHS, "families-parity",
+                          decode=True)
+    log(f"families-parity: {json.dumps(parity)}")
+    out = {"parity": parity,
+           "ssm": family_decode(torch, ops, "ssm", seed, smi, profile_steps=8)}
+    out["ssm_train"] = family_train(torch, "ssm", seed, smi)
+    out["hybrid"] = family_decode(torch, ops, "hybrid", seed, smi)
+    out["vlm"] = family_decode(torch, ops, "vlm", seed, smi)
+    out["audio_train"] = family_train(torch, "audio", seed, smi)
+    out.update(seconds=time.perf_counter() - t0, device=smi,
+               launches={"paged_attn": ops.launches.get("paged_attn", 0)})
+    log(json.dumps({"families": out}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--managed-ms", type=int, default=1024,
                     help="managed 2 MiB MSs of guest frames in HBM "
                          "(16384 = the paper's 32 GiB)")
-    ap.add_argument("--fleet-node-ms", type=int, default=128,
+    ap.add_argument("--fleet-node-ms", type=int, default=32,
                     help="managed 2 MiB MSs of each of the fleet phase's 4 "
                          "nodes (the paper's node holds 16384)")
     ap.add_argument("--bench-ms", type=int, default=BENCH_MS,
@@ -2907,13 +3339,14 @@ def main() -> int:
     elastic_serving(torch, ops, args.seed)
     done("serve-parity, elastic-kv and elastic-serving")
 
-    # 10. expert cache, 11. fleet, 12. bench, 13. train: their launches
-    # join the main paths'
+    # 10. expert cache, 11. fleet, 12. bench, 13. train, 14. families:
+    # their launches join the main paths'
     for name, run in (
             ("expert-cache", lambda: expert_cache_phase(torch, np, core, ops, args.seed)),
             ("fleet", lambda: fleet_phase(torch, np, ops, args.fleet_node_ms, args.seed)),
             ("bench", lambda: bench_phase(torch, np, ops, args.bench_ms, overhead)),
-            ("train", lambda: train_phase(torch, ops, core, args.seed, smi))):
+            ("train", lambda: train_phase(torch, ops, core, args.seed, smi)),
+            ("families", lambda: families_phase(torch, ops, args.seed, smi))):
         for k, n in run()["launches"].items():
             launches[k] = launches.get(k, 0) + n
         done(name)

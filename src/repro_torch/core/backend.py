@@ -77,6 +77,7 @@ from .config import TaijiConfig
 from .errors import CorruptionError
 from .metrics import Metrics
 from .ms import K_COMPRESSED, K_DISK, K_FREE, K_NONE, K_ZERO
+from .virt import resolve_device
 
 _perf_ns = time.perf_counter_ns
 
@@ -200,11 +201,12 @@ class BackendStore:
     """Unified backend over the zero/free/compressed/disk tiers."""
 
     def __init__(self, cfg: TaijiConfig, metrics: Metrics,
-                 device="cpu") -> None:
+                 device=None) -> None:
         self.cfg = cfg
         self.metrics = metrics
         # where store_batch/load_batch rows live and the tag check runs
-        self.device = torch.device(device)
+        # (``None``: the card, as every entry point)
+        self.device = resolve_device(device)
         # per-shard lock stripe over the compressed map; each (gfn, mp) key
         # maps to exactly one stripe, so per-key ops never race. Values are
         # explicitly tagged tuples: ("z", blob) zlib, ("v", raw) verbatim,

@@ -2,8 +2,8 @@
 
 ``params_from_numpy`` takes the reference's ``init_params`` tree with its
 leaves as numpy arrays -- layer leaves stacked ``(L, ...)`` as the
-reference scans them, a first-dense MoE config's ``layer0`` as its own
-subtree -- and returns the port's :class:`~.model.Model` with the same
+reference scans them, hybrid leaves ``(G, n, ...)`` or ``(G, ...)``, a
+first-dense MoE config's ``layer0`` as its own subtree -- and returns the port's :class:`~.model.Model` with the same
 values. ``train_state_from_numpy`` does the same for a whole reference
 ``TrainState`` (parameters, AdamW moments, step). Converting the
 reference's arrays to numpy is the caller's step; nothing here imports
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .config import ArchConfig
-from .model import DTYPES, Model, first_dense
+from .model import DTYPES, Model
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -43,24 +43,29 @@ def _leaves(tree: Mapping[str, Any], cfg: ArchConfig,
             model: Model) -> Iterator[Tuple[str, torch.nn.Parameter, torch.Tensor]]:
     """(name, port parameter, the tree's leaf for it) in the model's
     parameter order; raises where a shape differs or the tree holds a
-    leaf the port has no parameter for."""
-    # the reference stacks the L = n_layers - first_dense layers only when
-    # L > 1 (model.py:49, :174)
-    stacked = cfg.n_layers - int(first_dense(cfg)) > 1
+    leaf the port has no parameter for.
+
+    A port name's numeric parts index the reference's stacked leaf, in
+    order: the layer (or, for the hybrid family, the group) and then the
+    mixer or FFN within a group. The reference stacks a leaf over ``n``
+    only where ``n > 1`` (``model.py:49``, ``:107``, ``:174``) but always
+    stacks norms over layers and hybrid leaves over groups
+    (``_stack_over_groups``), so an index applies while the leaf has
+    more dimensions than the port's parameter."""
     seen = set()
     for name, p in model.named_parameters():
-        top, *rest = name.split(".")
-        node, idx = tree[top], None
-        if top == "layers":
-            idx, *rest = rest
-            seen.add(".".join(["layers", *rest]))
-        else:
-            seen.add(name)
-        for key in rest:
-            node = node[key]
-        if idx is not None and stacked:
-            node = node[int(idx)]
-        src = _tensor(node)
+        src, idx, path = tree, [], []
+        for key in name.split("."):
+            if key.isdigit():
+                idx.append(int(key))
+            else:
+                src = src[key]
+                path.append(key)
+        seen.add(".".join(path))
+        for i in idx:
+            if src.ndim > p.dim():
+                src = src[i]
+        src = _tensor(src)
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{name} has shape {tuple(src.shape)}, the port "
                              f"expects {tuple(p.shape)}")

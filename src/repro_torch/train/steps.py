@@ -53,7 +53,9 @@ def train_step(state: TrainState, batch: M.Batch, cfg: ArchConfig,
         p.grad = None
     loss, metrics = M.loss_fn(state.model, cfg, batch)
     loss.backward()
-    grads = [p.grad for p in params]
+    # a parameter the loss does not reach (the audio family's ``embed``)
+    # has a zero gradient, as in the reference
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     opt_metrics = adamw.update(grads, state.opt, params, state.step, opt_cfg)
     for p in params:
         p.grad = None
@@ -70,6 +72,10 @@ def prefill_step(params: M.Model, batch: M.Batch, cfg: ArchConfig
 
 
 def serve_step(params: M.Model, tokens: torch.Tensor, cache: M.Cache,
-               cfg: ArchConfig) -> Tuple[torch.Tensor, M.Cache]:
-    """One decode step: new token for every sequence against its KV."""
-    return M.decode_step(params, cfg, tokens, cache)
+               cfg: ArchConfig, mrope_pos: Optional[torch.Tensor] = None,
+               input_embeds: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, M.Cache]:
+    """One decode step: new token for every sequence against its KV and
+    SSM state; ``input_embeds`` (B, D) in place of the tokens' embedding
+    (a vision prefix), beyond the reference's arguments."""
+    return M.decode_step(params, cfg, tokens, cache, mrope_pos, input_embeds)

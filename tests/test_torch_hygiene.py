@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.benchmarks.overcommit, "
             "repro_torch.benchmarks.fault_latency, "
             "repro_torch.benchmarks.overhead, repro_torch.benchmarks.run, "
-            "repro_torch.models.moe, repro_torch.optim.adamw, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.optim.adamw, "
             "repro_torch.data.pipeline, repro_torch.checkpoint.manager, "
             "repro_torch.launch.train, repro_torch.examples.quickstart, "
             "repro_torch.examples.elastic_moe_training; "

@@ -35,6 +35,9 @@ from repro.configs.reduce import reduced_config as ref_reduced  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.configs.reduce import reduced_config  # noqa: E402
+from repro_torch.core.backend import BackendStore  # noqa: E402
+from repro_torch.core.config import TaijiConfig  # noqa: E402
+from repro_torch.core.metrics import Metrics  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -131,36 +134,60 @@ def test_norm_rope_and_mlp_match_reference():
 
 
 # ------------------------------------------------------------- parameters
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", RCfg.ARCH_IDS)
 def test_init_params_has_the_reference_tree(arch):
+    """Every family's tree and shapes against ``JM.param_shapes``: the
+    reference stacks a leaf over the layers (the groups, for the hybrid
+    family) where there are several, the norms always, and a hybrid
+    group's mixers and FFNs where the group has several; the parameter
+    count equals the reference's tree's and ``param_count()``'s within its
+    own test's 1%; the init rules; the same seed gives the same values."""
     cfg = reduced_config(arch)
     shapes = jax.tree.map(lambda a: a.shape, JM.param_shapes(ref_reduced(arch)))
     model = TM.init_params(cfg, seed=3, device="cpu")
-    L = cfg.n_layers
     got = {}
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            if parts[1] != "0":
-                continue
-            got[".".join(["layers", *parts[2:]])] = (L, *p.shape)
+        parts, stack, node = name.split("."), [], model
+        for i, part in enumerate(parts[:-1]):
+            if part.isdigit():
+                if part != "0":
+                    break
+                n = len(node)
+                if n > 1 or cfg.family == "hybrid" and i == 1 \
+                        or parts[-1].startswith("ln"):
+                    stack.append(n)
+            node = getattr(node, part) if not part.isdigit() else node[0]
         else:
-            got[name] = tuple(p.shape)
+            got[".".join(x for x in parts if not x.isdigit())] = (*stack, *p.shape)
 
     def flat(node, prefix=""):
         for k, v in node.items():
             key = f"{prefix}.{k}" if prefix else k
             yield from (flat(v, key) if isinstance(v, dict) else [(key, v)])
 
-    assert got == dict(flat(shapes))
+    want = dict(flat(shapes))
+    assert got == want
+    n = sum(p.numel() for p in model.parameters())
+    assert n == sum(int(np.prod(s)) for s in want.values())
+    assert abs(n - cfg.param_count()) / n < 0.01, (n, cfg.param_count())
     assert all(p.dtype == torch.float32 and p.requires_grad
                for p in model.parameters())
-    ones = [model.final_norm, model.layers[1].ln1, model.layers[2].ln2]
-    assert all(torch.equal(t, torch.ones_like(t)) for t in ones)
-    std = float(model.layers[0].attn.wq.std())
-    assert 0.018 < std < 0.022
-    std_out = float(model.layers[0].mlp.w_down.std()) * np.sqrt(2 * L)
-    assert 0.017 < std_out < 0.023
+    L = cfg.n_layers
+    for name, p in model.named_parameters():
+        leaf, t = name.rsplit(".", 1)[-1], p.detach()
+        if leaf.startswith("ln") or leaf in ("final_norm", "q_norm", "k_norm", "D"):
+            assert torch.equal(t, torch.ones_like(t)), name
+        elif leaf in ("bq", "bk", "bv", "conv_b"):
+            assert not t.any(), name
+        elif leaf == "dt_bias":
+            assert torch.allclose(t, torch.full_like(t, np.log(np.e - 1))), name
+        elif leaf == "A_log":
+            row = torch.log(torch.arange(1, t.shape[-1] + 1, dtype=torch.float32))
+            assert torch.equal(t, row.expand_as(t)), name
+        else:
+            sd = (cfg.dt_rank_ ** -0.5 if leaf == "dt_proj" else 0.02 / np.sqrt(2 * L)
+                  if leaf in ("wo", "w_down", "shared_down", "out_proj") else 0.02)
+            assert 0.85 * sd < float(t.std()) < 1.15 * sd, (name, float(t.std()), sd)
     again = TM.init_params(cfg, seed=3, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
                                                  again.parameters()))
@@ -188,16 +215,6 @@ def test_cast_params_casts_once_to_compute_dtype():
     assert torch.equal(model.layers[1].attn.wq, want)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "falcon-mamba-7b",
-                                  "jamba-1.5-large-398b", "hubert-xlarge"])
-def test_other_families_are_not_ported_yet(arch):
-    cfg = reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TM.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TM.init_cache(cfg, 2, 16, device="cpu")
-
-
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config("qwen3-4b")
@@ -205,6 +222,8 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
         TM.init_params(cfg, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TM.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BackendStore(TaijiConfig(), Metrics())
 
 
 # ------------------------------------------------------------------ cache

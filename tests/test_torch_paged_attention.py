@@ -400,6 +400,31 @@ def test_cuda_kernel_takes_every_dense_geometry(cuda_device, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "qwen2-vl-2b"])
+def test_cuda_kernel_takes_the_families_head_groups(cuda_device, arch):
+    """jamba's attention layer (64/8 heads of 128, group 8) and qwen2-vl
+    (12/2, group 6) at the serve phase's batch, 64-token blocks and 2048
+    positions, bf16, lengths from 0 to the table's end; one launch each,
+    against the plain version."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    shape = (8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, 64, 32)
+    q, pool, table, kv_len = _inputs(*shape, "bfloat16", seed=14,
+                                     kv_len=[0, 1, 63, 64, 65, 512, 2048, 1000])
+    args = [_torch(q, "bfloat16").to(cuda_device),
+            _torch(pool, "bfloat16").to(cuda_device),
+            torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(kv_len).to(cuda_device)]
+    ops.reset_launches()
+    got = ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.launches.get("paged_attn") == 1
+    want = ref.paged_decode_attention(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_refuses_a_head_size_it_does_not_take(cuda_device):
     """The source decides which head sizes it compiles: hd 48 fails the
     launch with the library's return code, not a wild launch."""

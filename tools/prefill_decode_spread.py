@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """How far prefill and paged decode disagree in bf16 at full width, as
 they are and with a fault planted in the decode, on models trained at the
-reference's lr and at chip_smoke.py phase 13 (b)'s.
+reference's lr and at chip_smoke.py phase 13 (b)'s; with ``--families``,
+how far decode and the forward disagree for phase 14's (b)-(d).
 
-    python3 tools/prefill_decode_spread.py
+    python3 tools/prefill_decode_spread.py [--families]
 
 For the shapes of ``chip_smoke.py`` phase 13 (b) (qwen3-4b cut to 16
 layers, training batch 4 x 512, 64-token prompts) and (d)
@@ -19,6 +20,23 @@ attention reads one token fewer), ``lost_kv_write`` (the K/V of the
 prompt's second-to-last token is never written, in any layer) and, for
 the MoE model, ``no_layer0`` (decode skips the dense first layer). One
 JSON line a reading, with the phase's tolerance. Needs the card.
+
+With ``--families``: ``chip_smoke.family_model``'s falcon-mamba-7b (b),
+one jamba group (c) and qwen2-vl-2b (d), each from 3 seeds, through
+``chip_smoke.decode_against_forward`` (decode logits against the
+forward's at every position) in bf16 and, for the two mamba models, the
+same tokens again with the weights cast to f32 and f32 compute (for
+jamba in bf16 also the positions where a token's experts differ between
+decode and the forward, and the error where they agree); each as it is
+and, from 2 of the seeds (1 for the mamba models in bf16), under each
+planted fault: for the mamba layers ``conv_not_shifted`` (the
+carried conv window never takes in the new input), ``ssm_not_carried``
+(each decode step starts from a zero SSM state) and
+``chunk_state_dropped`` (the forward's second scan chunk starts from a
+zero state instead of the first chunk's); for jamba's attention layer
+and qwen2-vl also ``kv_len_short``, for qwen2-vl ``lost_kv_write`` and
+``no_mrope_pos`` (decode rotates by the 1-D position, not the vision
+prefix's M-RoPE ids).
 """
 from __future__ import annotations
 
@@ -76,6 +94,151 @@ def no_layer0(torch, ops, M, model, T):
         del model.decoder_layers
 
 
+@contextlib.contextmanager
+def conv_not_shifted(torch, ops, M, model, T):
+    real = M.mamba_decode_step
+
+    def step(x, p, cfg, conv, ssm):
+        out, _, h = real(x, p, cfg, conv, ssm)
+        return out, conv, h
+    M.mamba_decode_step = step
+    try:
+        yield
+    finally:
+        M.mamba_decode_step = real
+
+
+@contextlib.contextmanager
+def ssm_not_carried(torch, ops, M, model, T):
+    real = M.mamba_decode_step
+    M.mamba_decode_step = (lambda x, p, cfg, conv, ssm:
+                           real(x, p, cfg, conv, torch.zeros_like(ssm)))
+    try:
+        yield
+    finally:
+        M.mamba_decode_step = real
+
+
+@contextlib.contextmanager
+def chunk_state_dropped(torch, ops, M, model, T):
+    from repro_torch.models import ssm as SSM
+    real, seen = SSM._fused_step, [0]
+
+    def step(h, *rest):
+        # a scan's first chunk starts from zeros: count chunks from there
+        seen[0] = 0 if not bool(h.any()) else seen[0] + 1
+        return real(torch.zeros_like(h) if seen[0] == 1 else h, *rest)
+    SSM._fused_step = step
+    try:
+        yield
+    finally:
+        SSM._fused_step = real
+
+
+@contextlib.contextmanager
+def no_mrope_pos(torch, ops, M, model, T):
+    real = M.decode_step
+    M.decode_step = (lambda model, cfg, tokens, cache, mrope_pos=None,
+                     input_embeds=None:
+                     real(model, cfg, tokens, cache, None, input_embeds))
+    try:
+        yield
+    finally:
+        M.decode_step = real
+
+
+@contextlib.contextmanager
+def routes(moe, out: list):
+    """Record every ``router_topk`` call's experts (sorted per token)."""
+    real = moe.router_topk
+
+    def rec(x, w, k):
+        g, i, a = real(x, w, k)
+        out.append(i.sort(-1).values)
+        return g, i, a
+    moe.router_topk = rec
+    try:
+        yield
+    finally:
+        moe.router_topk = real
+
+
+def flipped_positions(calls: list, n_moe: int, B: int, T: int):
+    """(B, T) mask of the positions whose experts differ between decode
+    (T steps of ``n_moe`` calls on B tokens, first) and the forward
+    (``n_moe`` calls on B * T tokens, after) in any MoE layer."""
+    import torch
+    dec = torch.stack([torch.stack([calls[t * n_moe + l] for t in range(T)], 1)
+                       for l in range(n_moe)])
+    fwd = torch.stack([calls[T * n_moe + l].view(B, T, -1) for l in range(n_moe)])
+    return (dec != fwd).any(-1).any(0)
+
+
+FAMILY_SEEDS = (0, 1, 2)
+# the faults' seeds: in bf16 (the mamba faults are below its rounding:
+# one seed) and in f32 and for qwen2-vl (two)
+BF16_FAULT_SEEDS, FAMILY_FAULT_SEEDS = (0,), (0, 1)
+MAMBA_FAULTS = (("conv_not_shifted", conv_not_shifted),
+                ("ssm_not_carried", ssm_not_carried),
+                ("chunk_state_dropped", chunk_state_dropped))
+FAMILY_FAULTS = {"ssm": MAMBA_FAULTS,
+                 "hybrid": MAMBA_FAULTS + (("kv_len_short", kv_len_short),),
+                 "vlm": (("kv_len_short", kv_len_short),
+                         ("lost_kv_write", lost_kv_write),
+                         ("no_mrope_pos", no_mrope_pos))}
+
+
+def families(torch, ops, M) -> None:
+    from repro_torch.models import moe as MOE
+
+    for part, faults in FAMILY_FAULTS.items():
+        for seed in FAMILY_SEEDS:
+            cfg, model, batch, gen = cs.family_model(torch, part, seed)
+            fault_seeds = BF16_FAULT_SEEDS if cfg.mamba else FAMILY_FAULT_SEEDS
+            for dtype in ("bfloat16", "float32") if cfg.mamba else ("bfloat16",):
+                if dtype == "float32":
+                    # the sound bf16 run's tokens, the weights cast to f32
+                    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+                    batch, gen = {"tokens": fed}, 0
+                    model.float()
+                    fault_seeds = FAMILY_FAULT_SEEDS
+                    tol = cs.FAMILY_F32_DECODE_TOL
+                else:
+                    tol = cs.FAMILY_DECODE_TOL[cfg.name]
+                T = batch["tokens"].shape[1] + gen
+                plants = [(None, None)] + list(faults if seed in fault_seeds else ())
+                for name, plant in plants:
+                    calls: list = []
+                    with (plant(torch, ops, M, model, T) if plant
+                          else contextlib.nullcontext()), \
+                            (routes(MOE, calls) if cfg.moe else
+                             contextlib.nullcontext()):
+                        r, ex = cs.decode_against_forward(torch, ops, model,
+                                                          cfg, batch, gen)
+                    err = r["decode_vs_forward_rel_err"]
+                    line = {"arch": cfg.name, "layers": cfg.n_layers,
+                            "seed": seed, "compute": dtype, "positions": T,
+                            "fault": name, "rel_err": err,
+                            "argmax_equal": r["argmax_equal"], "tolerance": tol,
+                            "above_tolerance": None if tol is None else not err < tol}
+                    if cfg.moe:
+                        flip = flipped_positions(calls, cfg.hybrid_group // 2,
+                                                 r["batch"], T)
+                        agree = ex["pos_err"][~flip]
+                        line.update(flipped_positions=int(flip.sum()),
+                                    rel_err_where_routes_agree=(
+                                        float(agree.max()) if agree.numel() else None))
+                    print(json.dumps(line), flush=True)
+                    if name is None and dtype == "bfloat16":
+                        fed = ex["tokens"]
+                    del ex
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            del model, batch, fed
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -85,6 +248,9 @@ def main() -> None:
     from repro_torch.launch.train import run_training
     from repro_torch.models import model as M
     _build.build(verbose=False)
+    if "--families" in sys.argv[1:]:
+        families(torch, ops, M)
+        return
 
     tol = cs.PREFILL_DECODE_TOL
     for arch, layers, (tb, ts), (pb, T) in CASES:
