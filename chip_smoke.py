@@ -328,6 +328,14 @@ TRAIN_LR, PREFILL_BATCH, PREFILL_PROMPT = 3e-5, 4, 64
 PREFILL_DECODE_TOL = 1e-1
 # the H100 SXM's dense bf16 tensor-core peak (data sheet)
 BF16_FLOPS_PER_S = 989e12
+# (b)'s roofline row: the same config and batch traced on the meta device
+# by the dry run (repro_torch.launch.dryrun, op_count). Its counted FLOPs
+# must lie within TRAIN_FLOPS_RATIO of the script's model_flops_per_step,
+# which counts attention already: about 4/3 from the per-layer recompute
+# (1.22 on the CPU trace); and its larger roofline term (compute or the
+# eager, unfused byte count over 3.35 TB/s) may not exceed the measured
+# median step. Its memory estimate is reported beside the measured peak
+TRAIN_FLOPS_RATIO = (1.0, 1.6)
 # (c) checkpoint and resume at the quickstart's 100M config: 20 steps of
 # batch 8 x 256, a checkpoint at step 10, steps 11-20 again from it;
 # resumed losses within CKPT_LOSS_TOL relative (the embedding's backward
@@ -2738,6 +2746,7 @@ def train_full_width(torch, ops, seed: int, smi: str) -> dict:
         f"{out['tokens_per_s']:.0f} tokens/s, peak {peak / 1e9:.2f} GB, device "
         f"busy {out['device_busy_share']}, {flops / 1e12:.1f} TFLOP a step = "
         f"{out['flop_share_bf16_peak']:.3f} of the bf16 peak; {smi}")
+    out["roofline"] = train_roofline(cfg, med_ms, flops, peak, smi)
 
     # prefill against paged decode, on the trained parameters
     g = torch.Generator(device="cpu").manual_seed(seed + 11)
@@ -2748,6 +2757,44 @@ def train_full_width(torch, ops, seed: int, smi: str) -> dict:
     del state, r, batch, met, prof
     free_device(torch)
     return out
+
+
+def train_roofline(cfg, med_ms: float, model_flops: float, peak: int,
+                   smi: str) -> dict:
+    """Phase 13 (b)'s roofline row: (b)'s config and batch counted and
+    sized on the meta device by the dry run (on the host, nothing runs on
+    the card), held to the measured step."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun, op_count
+
+    shape = ShapeSpec("train_full_width", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    m = dryrun.measure(cfg, shape)
+    mem = dryrun.memory_bytes(cfg, shape, m, None)
+    terms = op_count.roofline_terms(m["cost"])
+    counted = m["cost"].flops
+    ratio = counted / model_flops
+    bound_s = max(terms["compute_s"], terms["memory_s"])
+    row = {"counted_flops": counted, "model_flops_per_step": model_flops,
+           "ratio": ratio, "compute_s": terms["compute_s"],
+           "memory_s": terms["memory_s"], "dominant": terms["dominant"],
+           "measured_step_ms": med_ms, "memory_estimate_gb": mem["total"] / 1e9,
+           "measured_peak_gb": peak / 1e9, "trace_s": time.perf_counter() - t0}
+    log(f"roofline: {cfg.name} {cfg.n_layers} layers, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: counted {counted:.4e} FLOP, model_flops_per_step "
+        f"{model_flops:.4e}, ratio {ratio:.3f}; compute_s {terms['compute_s']:.4f} "
+        f"memory_s {terms['memory_s']:.4f} (eager bytes {m['cost'].hbm_bytes:.4e}), "
+        f"dominant {terms['dominant']}; measured median step {med_ms:.1f} ms; "
+        f"memory estimate {row['memory_estimate_gb']:.2f} GB against measured "
+        f"peak {row['measured_peak_gb']:.2f} GB; traced in {row['trace_s']:.1f} s; {smi}")
+    lo, hi = TRAIN_FLOPS_RATIO
+    if not lo <= ratio <= hi:
+        fail(f"roofline: counted FLOPs are {ratio:.3f} x model_flops_per_step, "
+             f"outside [{lo}, {hi}]")
+    if not bound_s <= med_ms / 1e3:
+        fail(f"roofline: the roofline bound {bound_s:.4f} s exceeds the measured "
+             f"step {med_ms / 1e3:.4f} s")
+    return row
 
 
 def prefill_decode_err(torch, ops, model, cfg, prompt) -> dict:

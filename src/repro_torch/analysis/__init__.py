@@ -5,8 +5,8 @@ One source of truth, checked two ways:
   * :mod:`.lock_order` -- the declared lock hierarchy. Every lock class in
     the system has a name and a rank here; ``named_lock`` is the zero-cost
     construction wrapper the rest of the tree uses.
-  * the AST static lint stays in the reference package and is run over
-    this one (``python -m repro.analysis.lint src/repro_torch``): rank
+  * :mod:`.lint` -- the AST static lint over this hierarchy
+    (``python -m repro_torch.analysis.lint src/repro_torch``): rank
     violations visible lexically, blocking calls under the MP mutex, bare
     ``threading.Lock()`` construction outside the registry, and
     deprecated ``TaijiSystem.read/write/ms_addr`` shim calls.

@@ -10,8 +10,9 @@ the checkout)::
 
 Port: ``benchmarks/run.py`` over the port's modules, in the same order
 with the same rows. ``--device`` holds every module's frames and tensors
-(default: the card). The roofline table comes with the TPU tooling's
-port (ROADMAP Queue A item 5).
+(default: the card). Outside ``--smoke`` it ends with the roofline table
+of :mod:`.roofline`, from the dry run's artifacts
+(``python -m repro_torch.launch.dryrun --all``).
 """
 from __future__ import annotations
 
@@ -93,7 +94,13 @@ def main() -> None:
         print(f"# {title} done in {time.time()-t0:.1f}s", file=sys.stderr)
 
     if not args.smoke:
-        print("\n# roofline table: ported with ROADMAP Queue A item 5")
+        print("\n# === roofline table (from dry-run artifacts) ===")
+        try:
+            from . import roofline
+            roofline.run(verbose=True)
+        except Exception:
+            failures += 1
+            traceback.print_exc()
 
     mode = "smoke" if args.smoke else ("quick" if args.quick else "full")
     out_path = Path(args.out) if args.out else OUT_DIR / f"BENCH_torch_{mode}.json"

@@ -11,7 +11,12 @@ on where its tensors live:
   ``launches[name]`` -- there is no fallback: a kernel that does not
   build or launch raises;
 * on the CPU it runs the plain version in :mod:`.ref`, and counts
-  nothing.
+  nothing;
+* paged attention, the one wrapper the model's step reaches, also takes
+  meta tensors: it returns an empty output of q's shape and dtype,
+  nothing executes, and it reports the kernel's own FLOPs and bytes to
+  :data:`meta_cost_sinks` (the dry run, ``launch/dryrun.py``). This is
+  shape inference, not a fallback; every other device raises.
 
 Index vectors of the swap kernels come from the host bitmaps (numpy);
 the wrappers check them against the pool on the host, and both the
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +51,10 @@ launches: Dict[str, int] = {"gather": 0, "scatter": 0, "zero": 0,
 # verdict
 transfers: Dict[str, int] = {"index_upload": 0, "verdict_wait": 0}
 _count_lock = named_lock("metrics")
+# where a kernel traced on meta reports its cost, as (kernel, FLOPs,
+# bytes): nothing runs there that an operator counter could see.
+# ``launch.op_count.OpCounter`` adds its own while it counts
+meta_cost_sinks: List[Callable[[str, float, float], None]] = []
 
 
 def reset_launches() -> None:
@@ -498,6 +507,14 @@ def paged_decode_attention(q: torch.Tensor, kv_pool: torch.Tensor,
     for t in (q, kv_pool, block_table, kv_len):
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+    if all(t.device.type == "meta" for t in (q, kv_pool, block_table, kv_len)):
+        # shapes only (the dry run): a meta table holds no entries to
+        # check, and no length, so the cost is at every table entry used
+        flops, nbytes = paged_attn_cost(q, kv_pool, block_table,
+                                        block_table.shape[1] * bt)
+        for sink in meta_cost_sinks:
+            sink("paged_attn_kernel", flops, nbytes)
+        return torch.empty_like(q)
     if not _on_cuda(name, q, kv_pool, block_table, kv_len):
         _check_table_host(block_table, kv_len, n_blocks, bt)
         return ref.paged_decode_attention(q, kv_pool, block_table, kv_len)
@@ -508,6 +525,20 @@ def paged_decode_attention(q: torch.Tensor, kv_pool: torch.Tensor,
     out = torch.empty_like(q)
     launch_paged_attn(q, kv_pool, block_table, kv_len, out)
     return out
+
+
+def paged_attn_cost(q: torch.Tensor, kv_pool: torch.Tensor,
+                    block_table: torch.Tensor, kv_rows: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one paged-attention launch whose sequences each
+    read ``kv_rows`` positions: q, those K and V rows, the table and
+    ``kv_len`` read once and the output written once; q.K and p.V take 4
+    FLOPs per K/V element and query head."""
+    B, H, hd = q.shape
+    KV = kv_pool.shape[3]
+    kv_bytes = B * kv_rows * 2 * KV * hd * kv_pool.element_size()
+    io_bytes = (2 * q.numel() * q.element_size()
+                + block_table.numel() * block_table.element_size() + B * 4)
+    return 4 * B * H * kv_rows * hd, kv_bytes + io_bytes
 
 
 def launch_paged_attn(q: torch.Tensor, kv_pool: torch.Tensor,

@@ -218,10 +218,13 @@ def init_params(cfg: ArchConfig, *, seed: Optional[int] = None,
     every channel. The random values come from a torch generator
     (``generator``, or one seeded with ``seed`` on the parameters'
     device), so they are not the reference's. ``device`` ``None`` means
-    the card."""
+    the card; on ``meta`` there are no values to draw, so the model comes
+    back with its shapes and dtypes only (the dry run sizes it)."""
     if (seed is None) == (generator is None):
         raise ValueError("init_params: pass exactly one of seed, generator")
     device = resolve_device(device)
+    if device.type == "meta":
+        return Model(cfg, DTYPES[cfg.param_dtype], device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     model = Model(cfg, DTYPES[cfg.param_dtype], device)

@@ -49,7 +49,13 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int
     # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
     E = w_router.shape[-1]
     me = probs.mean(dim=0)                             # mean router prob
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
+    # routes per expert as an index_add of ones: bit-equal to
+    # ``bincount(...).float()`` below 2**24 routes, and shape-only on the
+    # meta device, where bincount has no kernel
+    flat = idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.float32, device=idx.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=idx.device))
+    ce = counts / idx.numel()
     aux = E * torch.sum(me * ce)
     return gates, idx, aux
 

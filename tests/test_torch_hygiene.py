@@ -1,5 +1,6 @@
 """Boundaries of the PyTorch/CUDA port: it imports neither JAX nor the
-reference package, passes the reference's concurrency lint, builds every
+reference package, passes the reference's concurrency lint and its own
+(which reads the port's lock hierarchy), builds every
 lock from a declared class, and its chip smoke refuses to run without a
 card."""
 import ast
@@ -65,7 +66,11 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.optim.adamw, "
             "repro_torch.data.pipeline, repro_torch.checkpoint.manager, "
             "repro_torch.launch.train, repro_torch.examples.quickstart, "
-            "repro_torch.examples.elastic_moe_training; "
+            "repro_torch.examples.elastic_moe_training, "
+            "repro_torch.analysis.lint, repro_torch.shard_ctx, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.specs, repro_torch.launch.op_count, "
+            "repro_torch.launch.dryrun, repro_torch.benchmarks.roofline; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -76,6 +81,12 @@ def test_importing_the_port_loads_no_jax_or_reference():
 
 def test_port_passes_the_concurrency_lint():
     findings = lint_paths([str(PORT)])
+    assert not findings, "\n".join(str(f) for f in findings)
+
+
+def test_port_passes_its_own_concurrency_lint():
+    from repro_torch.analysis.lint import lint_paths as port_lint_paths
+    findings = port_lint_paths([str(PORT)])
     assert not findings, "\n".join(str(f) for f in findings)
 
 

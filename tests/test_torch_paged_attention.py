@@ -272,12 +272,19 @@ def test_wrapper_checks_shapes_dtypes_and_layout(no_launch):
 
 
 def test_kernel_path_takes_only_cuda_or_cpu(no_launch):
-    """A tensor neither on the CPU nor on a card is refused, never run."""
+    """Off the card and the CPU nothing runs: meta tensors (the dry run)
+    get the output's shape and dtype from the plain version, no launch;
+    tensors on two devices are refused. (The swap wrappers refuse meta
+    tensors: tests/test_torch_kernels.py.)"""
     args = [torch.empty((2, 8, 32), device="meta"),
             torch.empty((10, 8, 2, 2, 32), device="meta"),
             torch.zeros((2, 4), dtype=torch.int32, device="meta"),
             torch.zeros((2,), dtype=torch.int32, device="meta")]
-    with pytest.raises(ValueError, match="CUDA or CPU"):
+    out = ops.paged_decode_attention(*args)
+    assert out.device.type == "meta" and out.shape == (2, 8, 32)
+    assert out.dtype == torch.float32
+    args[3] = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="tensors on meta and cpu"):
         ops.paged_decode_attention(*args)
 
 
