@@ -112,7 +112,7 @@ LOCK_CLASSES: Dict[str, LockClass] = {c.name: c for c in (
               "kernels' shared library (first launch from any thread)"),
     # -- leaves: telemetry may be recorded under anything
     LockClass("metrics", 70,
-              "leaf telemetry: latency rings, timelines, span tracer, "
+              "leaf telemetry: latency rings, span tracer and its copy counters, "
               "fleet trace recorder", multi=True),
     LockClass("guard", 72,
               "AccessGuard: guest accesses in flight per gfn, drained by "
@@ -172,7 +172,6 @@ LINT_BINDINGS: Dict[Tuple[Optional[str], str], str] = {
     ("EntryOps", "_drained"): "entry",
     ("RunQueue", "lock"): "sched.rq",
     ("LatencyRing", "_lock"): "metrics",
-    ("Timeline", "_lock"): "metrics",
     ("SpanTracer", "_lock"): "metrics",
     ("TraceRecorder", "_lock"): "metrics",
     ("DMARegistry", "_lock"): "app",

@@ -70,7 +70,8 @@ import torch
 
 from ..analysis.lock_order import named_lock
 from ..kernels import ops
-from ..obs.tracer import (ST_BACKEND_REMOTE_GET, ST_BACKEND_REMOTE_PUT,
+from ..obs.tracer import (D2H, H2D, ST_BACKEND_LOAD, ST_BACKEND_REMOTE_GET,
+                          ST_BACKEND_REMOTE_PUT, ST_BACKEND_STORE,
                           ST_KERNEL_LOAD, ST_KERNEL_STORE, ST_SWAP_COMPRESS,
                           ST_SWAP_DECOMPRESS)
 from .config import TaijiConfig
@@ -756,6 +757,7 @@ class BackendStore:
         zero = zero_t.numpy()
         if tr is not None:
             tr.push(ST_KERNEL_STORE, t_k, _perf_ns() - t_k)
+            tr.copy(ST_BACKEND_STORE, D2H, 4 + k)   # the count and zero flags
 
         free_rows: List[int] = []
         if bk.free_page_enabled and self._free_page_probe is not None:
@@ -788,6 +790,8 @@ class BackendStore:
             host, *tags = (t.numpy() for t in ops.copy_to_host(nz_dev, *tags))
             if tr is not None:
                 tr.push(ST_KERNEL_STORE, t_k, _perf_ns() - t_k)
+                tr.copy(ST_BACKEND_STORE, D2H,
+                        host.nbytes + sum(t.nbytes for t in tags), 1 + len(tags))
         rank = np.cumsum(~zero) - 1      # batch row -> row of ``host``
         row_tags = np.zeros(k, dtype=np.uint32)
         if tags:
@@ -832,14 +836,14 @@ class BackendStore:
             # on the issuing thread (per-worker spans would overlap and
             # sum past the enclosing backend_store span)
             if tr is not None:
-                t_z = _perf_ns()
+                t_z = tr.begin(ST_SWAP_COMPRESS)
             if pool is not None:
                 ext_blobs = list(pool.map(
                     lambda rc: zlib.compress(rc, level), raw_cats))
             else:
                 ext_blobs = [zlib.compress(rc, level) for rc in raw_cats]
             if tr is not None:
-                tr.push(ST_SWAP_COMPRESS, t_z, _perf_ns() - t_z)
+                tr.end(ST_SWAP_COMPRESS, t_z)
             for sub, raw_cat, ext_blob in zip(chunks, raw_cats, ext_blobs):
                 if len(ext_blob) >= len(raw_cat):
                     leftovers.append(sub)     # incompressible: per-row path
@@ -863,7 +867,7 @@ class BackendStore:
             rest = (np.concatenate(leftovers) if leftovers
                     else rest[:0])
         if tr is not None and len(rest):
-            t_z = _perf_ns()
+            t_z = tr.begin(ST_SWAP_COMPRESS)
         for i, raw_row in zip(rest, host_rows(rest)):
             # per-row fallback: same tier order as the scalar store()
             raw = raw_row.tobytes()
@@ -886,7 +890,7 @@ class BackendStore:
             pending.setdefault(self._shard_idx(gfn, mp), []).append(
                 ((gfn, mp), entry))
         if tr is not None and len(rest):
-            tr.push(ST_SWAP_COMPRESS, t_z, _perf_ns() - t_z)
+            tr.end(ST_SWAP_COMPRESS, t_z)
 
         # one lock acquisition per touched shard, not one per MP
         for shard, entries in pending.items():
@@ -1027,7 +1031,7 @@ class BackendStore:
             stage = staging[0].numpy()[:n_staged * n].reshape(n_staged, n)
             tr = self._tr
             if tr is not None:
-                t_dz = _perf_ns()
+                t_dz = tr.begin(ST_SWAP_DECOMPRESS)
             for i, entry in blob_rows:
                 if entry[0] == "z":
                     stage[pos[i]] = np.frombuffer(zlib.decompress(entry[1]),
@@ -1041,15 +1045,15 @@ class BackendStore:
                 # extent lock, so racing a concurrent scalar fault is safe
                 self._ext_prefetch_raw(gfn, list(by_ext))
             if tr is not None:
-                tr.push(ST_SWAP_DECOMPRESS, t_dz, _perf_ns() - t_dz)
+                tr.end(ST_SWAP_DECOMPRESS, t_dz)
             for eid, pairs, tags, base in plan:
                 # one decompress + one copy for the rows of this extent
                 if tr is not None:
-                    t_p = _perf_ns()
+                    t_p = tr.begin(ST_SWAP_DECOMPRESS)
                 raw = self._ext_peek(gfn, eid, count=not prefetched)
                 if tr is not None:
                     # near-zero when the prefetch above already cached raw
-                    tr.push(ST_SWAP_DECOMPRESS, t_p, _perf_ns() - t_p)
+                    tr.end(ST_SWAP_DECOMPRESS, t_p)
                 arr = np.frombuffer(raw, dtype=np.uint8).reshape(-1, n)
                 if tags is not None:
                     stage[base:base + len(tags)] = arr
@@ -1085,6 +1089,10 @@ class BackendStore:
                     dst if crc_bad is None else np.full_like(dst, -1), tag,
                     rows[zero_rows] if crc_bad is None else None)
                 in_flight = False                 # the verdict came back
+                if tr is not None:
+                    # the staged rows up, the 4-byte verdict back
+                    tr.copy(ST_BACKEND_LOAD, H2D, n_staged * n)
+                    tr.copy(ST_BACKEND_LOAD, D2H, 4)
             if tr is not None:
                 tr.push(ST_KERNEL_LOAD, t_k, _perf_ns() - t_k)
             if bad_row >= 0:

@@ -282,7 +282,11 @@ class ObsConfig:
     Off by default: with ``enabled=False`` no ``SpanTracer`` is
     constructed and every instrumented call site costs exactly one
     ``is not None`` branch (the GuestSpace empty-observer discipline).
-    Spans are wall-clock telemetry only -- they never enter
+    ``enabled=True`` builds the system's tracer: spans per stage, the
+    per-stage counts and bytes of copies across PCIe, and -- while
+    ``torch.profiler`` records -- a ``taiji::<stage>`` host range in the
+    profiler's timeline for each span of a mirrored stage. Spans and
+    copy counts are wall-clock telemetry only -- they never enter
     ``deterministic_snapshot``, so capture/replay and chaos determinism
     are identical with tracing on or off.
     """

@@ -42,18 +42,16 @@ Two access tiers:
 """
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..obs.tracer import (ST_GUEST_ACCESS, TAG_GATHER, TAG_READ,
-                          TAG_READ_MANY, TAG_SCATTER, TAG_WRITE,
-                          TAG_WRITE_MANY)
-from .virt import F_ACCESSED, F_SPLIT, NO_PFN, frame_bytes, host_u8
-
-_perf_ns = time.perf_counter_ns
+from ..obs.tracer import (D2H, H2D, ST_GUEST_ACCESS, ST_GUEST_COPY,
+                          TAG_GATHER, TAG_READ, TAG_READ_MANY, TAG_SCATTER,
+                          TAG_WRITE, TAG_WRITE_MANY)
+from .virt import (F_ACCESSED, F_SPLIT, NO_PFN, frame_bytes, host_u8,
+                   traced_copy_in, traced_frame_bytes)
 
 # one observer event: (gfn, off, nbytes, is_write, data)
 AccessEvent = Tuple[int, int, int, bool, Optional[bytes]]
@@ -157,8 +155,9 @@ class GuestSpace:
         self._flags = system.virt.table.flags
         self._buf = system.phys.frames
         # stage-attributed tracing (repro_torch.obs): one guest_access span per
-        # primitive call, tagged with the access kind; None when disabled,
-        # so the benchmarked scalar paths pay one truthiness check
+        # primitive call, tagged with the access kind, and guest_copy spans
+        # for its frame copies; None when disabled, so the benchmarked
+        # scalar paths pay one truthiness check
         self._tr = system.metrics.tracer
 
     # ------------------------------------------------------------ observers
@@ -200,7 +199,7 @@ class GuestSpace:
                 f"({ms_bytes} bytes)")
         tr = self._tr
         if tr is not None:
-            t0 = _perf_ns()
+            t0 = tr.begin(ST_GUEST_ACCESS)
         # fast path: resident, unsplit MS -> direct buffer store
         fast = False
         if 0 <= gfn < self._n_virt:
@@ -212,13 +211,17 @@ class GuestSpace:
                 if fast:
                     self._flags[gfn] |= F_ACCESSED
                     base = int(pfn) * ms_bytes + off
-                    self._buf[base:base + nbytes].copy_(host_u8(data))
+                    if tr is None:
+                        self._buf[base:base + nbytes].copy_(host_u8(data))
+                    else:
+                        traced_copy_in(tr, self._buf[base:base + nbytes],
+                                       data, TAG_WRITE)
             finally:
                 guard.leave(gfn)
         if not fast:
             self._guest_write(gfn * ms_bytes + off, data)
         if tr is not None:
-            tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_WRITE)
+            tr.end(ST_GUEST_ACCESS, t0, TAG_WRITE)
         if self._observers:
             data = bytes(data)
             for obs in self._observers:
@@ -237,7 +240,7 @@ class GuestSpace:
                 f"({ms_bytes} bytes)")
         tr = self._tr
         if tr is not None:
-            t0 = _perf_ns()
+            t0 = tr.begin(ST_GUEST_ACCESS)
         # fast path: resident, unsplit MS -> direct buffer slice
         fast = False
         if 0 <= gfn < self._n_virt:
@@ -249,13 +252,17 @@ class GuestSpace:
                 if fast:
                     self._flags[gfn] |= F_ACCESSED
                     base = int(pfn) * ms_bytes + off
-                    data = frame_bytes(self._buf[base:base + nbytes])
+                    if tr is None:
+                        data = frame_bytes(self._buf[base:base + nbytes])
+                    else:
+                        data = traced_frame_bytes(
+                            tr, self._buf[base:base + nbytes], TAG_READ)
             finally:
                 guard.leave(gfn)
         if not fast:
             data = self._guest_read(gfn * ms_bytes + off, nbytes)
         if tr is not None:
-            tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_READ)
+            tr.end(ST_GUEST_ACCESS, t0, TAG_READ)
         if self._observers:
             for obs in self._observers:
                 obs.on_access(gfn, off, nbytes, False, data)
@@ -319,7 +326,7 @@ class GuestSpace:
             return []
         tr = self._tr
         if tr is not None:
-            t0 = _perf_ns()
+            t0 = tr.begin(ST_GUEST_ACCESS)
         arr = np.asarray(reqs, dtype=np.int64).reshape(-1, 3)
         g, o, n = arr[:, 0], arr[:, 1], arr[:, 2]
         self._check_batch_bounds(o, n, "read_many")
@@ -334,17 +341,21 @@ class GuestSpace:
             # .tolist() once: per-row numpy scalar indexing costs ~100ns a
             # touch, which would hand back most of the amortization win
             fl, bl, nl = fast.tolist(), base.tolist(), n.tolist()
+            if tr is not None:
+                t_c = tr.begin(ST_GUEST_COPY)
             for i, b in enumerate(bl):
                 if fl[i]:
                     out[i] = frame_bytes(buf[b:b + nl[i]])
+            if tr is not None:
+                self._end_copies(tr, t_c, TAG_READ_MANY, D2H, fast, n)
         finally:
             self._guard.leave_many(held)
         for i in range(len(out)):
             if not fl[i]:
                 out[i] = self._guest_read(int(g[i]) * ms_bytes + int(o[i]),
-                                          nl[i])
+                                          nl[i], TAG_READ_MANY)
         if tr is not None:
-            tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_READ_MANY)
+            tr.end(ST_GUEST_ACCESS, t0, TAG_READ_MANY)
         if self._observers:
             gl, ol = g.tolist(), o.tolist()
             events = [(gl[i], ol[i], nl[i], False, out[i])
@@ -360,7 +371,7 @@ class GuestSpace:
             return
         tr = self._tr
         if tr is not None:
-            t0 = _perf_ns()
+            t0 = tr.begin(ST_GUEST_ACCESS)
         items = list(items)
         arr = np.asarray([(gfn, off, len(data)) for gfn, off, data in items],
                          dtype=np.int64)
@@ -374,17 +385,22 @@ class GuestSpace:
             base = (self._pfn[np.where(fast, g, 0)].astype(np.int64)
                     * ms_bytes + o)
             fl, bl, nl = fast.tolist(), base.tolist(), n.tolist()
+            if tr is not None:
+                t_c = tr.begin(ST_GUEST_COPY)
             for i, (_, _, data) in enumerate(items):
                 if fl[i]:
                     b = bl[i]
                     buf[b:b + nl[i]].copy_(host_u8(data))
+            if tr is not None:
+                self._end_copies(tr, t_c, TAG_WRITE_MANY, H2D, fast, n)
         finally:
             self._guard.leave_many(held)
         for i, (_, _, data) in enumerate(items):
             if not fl[i]:
-                self._guest_write(int(g[i]) * ms_bytes + int(o[i]), data)
+                self._guest_write(int(g[i]) * ms_bytes + int(o[i]), data,
+                                  TAG_WRITE_MANY)
         if tr is not None:
-            tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_WRITE_MANY)
+            tr.end(ST_GUEST_ACCESS, t0, TAG_WRITE_MANY)
         if self._observers:
             gl, ol = g.tolist(), o.tolist()
             events = [(gl[i], ol[i], nl[i], True, bytes(data))
@@ -412,7 +428,7 @@ class GuestSpace:
             return np.empty((0,) + shape, dtype)
         tr = self._tr
         if tr is not None:
-            t0 = _perf_ns()
+            t0 = tr.begin(ST_GUEST_ACCESS)
         ms_bytes = self._ms_bytes
         raw = np.empty((g.size, nbytes), np.uint8)
         held = self._enter_batch(g)
@@ -421,19 +437,23 @@ class GuestSpace:
             base = (self._pfn[np.where(fast, g, 0)].astype(np.int64)
                     * ms_bytes + off)
             fl, bl, gl = fast.tolist(), base.tolist(), g.tolist()
+            if tr is not None:
+                t_c = tr.begin(ST_GUEST_COPY)
             for i in range(g.size):
                 if fl[i]:
                     b = bl[i]
                     raw[i] = self._buf[b:b + nbytes].cpu().numpy()
+            if tr is not None:
+                self._end_copies(tr, t_c, TAG_GATHER, D2H, fast, nbytes)
         finally:
             self._guard.leave_many(held)
         for i in range(g.size):
             if not fl[i]:
                 raw[i] = np.frombuffer(
-                    self._guest_read(gl[i] * ms_bytes + off, nbytes),
-                    np.uint8)
+                    self._guest_read(gl[i] * ms_bytes + off, nbytes,
+                                     TAG_GATHER), np.uint8)
         if tr is not None:
-            tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_GATHER)
+            tr.end(ST_GUEST_ACCESS, t0, TAG_GATHER)
         if self._observers:
             events = [(gl[i], off, nbytes, False, raw[i].tobytes())
                       for i in range(g.size)]
@@ -459,7 +479,7 @@ class GuestSpace:
         rows = arr.reshape(g.size, -1).view(np.uint8).reshape(g.size, nbytes)
         tr = self._tr
         if tr is not None:
-            t0 = _perf_ns()
+            t0 = tr.begin(ST_GUEST_ACCESS)
         ms_bytes = self._ms_bytes
         held = self._enter_batch(g)
         try:
@@ -467,22 +487,37 @@ class GuestSpace:
             base = (self._pfn[np.where(fast, g, 0)].astype(np.int64)
                     * ms_bytes + off)
             fl, bl, gl = fast.tolist(), base.tolist(), g.tolist()
+            if tr is not None:
+                t_c = tr.begin(ST_GUEST_COPY)
             for i in range(g.size):
                 if fl[i]:
                     b = bl[i]
                     self._buf[b:b + nbytes].copy_(host_u8(rows[i]))
+            if tr is not None:
+                self._end_copies(tr, t_c, TAG_SCATTER, H2D, fast, nbytes)
         finally:
             self._guard.leave_many(held)
         for i in range(g.size):
             if not fl[i]:
                 self._guest_write(gl[i] * ms_bytes + off,
-                                  rows[i].tobytes())
+                                  rows[i].tobytes(), TAG_SCATTER)
         if tr is not None:
-            tr.push(ST_GUEST_ACCESS, t0, _perf_ns() - t0, TAG_SCATTER)
+            tr.end(ST_GUEST_ACCESS, t0, TAG_SCATTER)
         if self._observers:
             events = [(gl[i], off, nbytes, True, rows[i].tobytes())
                       for i in range(g.size)]
             self._dispatch_batch(events)
+
+    @staticmethod
+    def _end_copies(tr, t0: int, tag: int, direction: int, fast: np.ndarray,
+                    nbytes) -> None:
+        """End the ``guest_copy`` span of a batch's fast rows and count
+        their copies; ``nbytes``: each row's bytes (one or per row)."""
+        tr.end(ST_GUEST_COPY, t0, tag)
+        k = int(np.count_nonzero(fast))
+        total = (int(nbytes[fast].sum()) if isinstance(nbytes, np.ndarray)
+                 else k * nbytes)
+        tr.copy(ST_GUEST_COPY, direction, total, k)
 
     def _dispatch_batch(self, events: Sequence[AccessEvent]) -> None:
         for obs in self._observers:

@@ -22,6 +22,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional
 
 from ..analysis.lock_order import named_lock
+from ..obs.tracer import ST_LRU_SCAN
 from .config import TaijiConfig
 
 HOT, HOT_INT, ACTIVE, INACTIVE, COLD_INT, COLD = range(6)
@@ -31,10 +32,13 @@ LEVEL_NAMES = ("HOT", "HOT_INT", "ACTIVE", "INACTIVE", "COLD_INT", "COLD")
 
 class MultiLevelLRU:
     def __init__(self, cfg: TaijiConfig,
-                 accessed_probe: Callable[[int], bool]) -> None:
-        """``accessed_probe(gfn)`` test-and-clears the access bit (EPT A-bit)."""
+                 accessed_probe: Callable[[int], bool], tracer=None) -> None:
+        """``accessed_probe(gfn)`` test-and-clears the access bit (EPT A-bit);
+        ``tracer`` (repro_torch.obs, ``None`` when disabled) gets one
+        ``lru_scan`` span per :meth:`scan_shard`."""
         self.cfg = cfg
         self.accessed_probe = accessed_probe
+        self._tr = tracer
         self._lock = named_lock("lru")
         # level -> OrderedDict[gfn -> unchanged_scan_count]
         self._sets: List[OrderedDict] = [OrderedDict() for _ in range(N_LEVELS)]
@@ -92,6 +96,9 @@ class MultiLevelLRU:
         Phase 1 (lock-free): probe access bits into the scan cache.
         Phase 2 (one short critical section): apply buffered moves.
         """
+        tr = self._tr
+        if tr is not None:
+            t0 = tr.begin(ST_LRU_SCAN)
         with self._lock:
             shard_gfns = [g for g in self._level_of if g % n_shards == shard]
 
@@ -105,6 +112,8 @@ class MultiLevelLRU:
                 cache = []
         moved += self._apply(cache)
         self.scan_rounds += 1
+        if tr is not None:
+            tr.end(ST_LRU_SCAN, t0, shard & 7)
         return moved
 
     def _apply(self, cache: List[tuple]) -> int:
@@ -171,14 +180,6 @@ class MultiLevelLRU:
     def counts(self) -> Dict[str, int]:
         with self._lock:
             return {LEVEL_NAMES[i]: len(s) for i, s in enumerate(self._sets)}
-
-    def hot_count(self) -> int:
-        with self._lock:
-            return len(self._sets[HOT]) + len(self._sets[HOT_INT]) + len(self._sets[ACTIVE])
-
-    def cold_count(self) -> int:
-        with self._lock:
-            return len(self._sets[INACTIVE]) + len(self._sets[COLD_INT]) + len(self._sets[COLD])
 
     def level_of(self, gfn: int) -> Optional[int]:
         with self._lock:

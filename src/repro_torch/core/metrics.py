@@ -1,8 +1,8 @@
 """Runtime metrics for the elastic-memory core.
 
 The paper evaluates Taiji with fault-latency percentiles (Fig 14f / 15d),
-water-level timelines (Fig 14e / 15a), hot/cold page counts (Fig 14c/d,
-15b), backend composition (Fig 15c) and metadata utilization (Fig 13a).
+hot/cold page counts (Fig 14c/d, 15b), backend composition (Fig 15c) and
+metadata utilization (Fig 13a).
 This module provides the counters/histograms those benchmarks read.
 
 The fault path is latency-critical (P90 < 10 us), so ``LatencyHistogram``
@@ -11,8 +11,7 @@ the GIL (single bytecode ops on ints are atomic in CPython).
 """
 from __future__ import annotations
 
-import time
-from typing import Dict, List
+from typing import Dict
 
 import numpy as np
 
@@ -224,21 +223,6 @@ class LatencyRing:
             hist.samples.extend(ns[:room].tolist())
 
 
-class Timeline:
-    """Append-only (t, value) series, e.g. free-memory water level."""
-
-    def __init__(self, maxlen: int = 100_000) -> None:
-        self._lock = named_lock("metrics")
-        self._t0 = time.perf_counter()
-        self.points: List[tuple] = []
-        self._maxlen = maxlen
-
-    def record(self, value: float) -> None:
-        with self._lock:
-            if len(self.points) < self._maxlen:
-                self.points.append((time.perf_counter() - self._t0, value))
-
-
 class Metrics:
     """All counters for one Taiji instance."""
 
@@ -289,9 +273,6 @@ class Metrics:
         self.backend_compressed_mps = 0
         self.backend_raw_bytes = 0
         self.backend_stored_bytes = 0
-
-        self.free_ms_timeline = Timeline()
-        self.hot_cold_timeline = Timeline()
 
         # stage-attributed span tracer (repro_torch.obs) -- None unless
         # ObsConfig.enabled; instrumented call sites cache this and guard

@@ -30,17 +30,23 @@ from .config import TaijiConfig
 
 FRONT, FCPU, BACK, IDLE = range(4)
 CLASS_NAMES = ("FRONT", "FCPU", "BACK", "IDLE")
+# task kinds, the tag of a task's sched_task spans
+TASK_LRU_SCAN, TASK_RECLAIM, TASK_OTHER = range(3)
+
+_perf_ns = time.perf_counter_ns
 
 
 class Task:
     """A cooperative task. ``fn(quantum_s) -> bool`` (True = more work)."""
 
-    __slots__ = ("name", "cls", "fn", "penalty_left", "penalty_factor",
-                 "runtime_s", "runs", "overruns", "done")
+    __slots__ = ("name", "cls", "kind", "fn", "penalty_left",
+                 "penalty_factor", "runtime_s", "runs", "overruns", "done")
 
-    def __init__(self, name: str, cls: int, fn: Callable[[float], bool]) -> None:
+    def __init__(self, name: str, cls: int, fn: Callable[[float], bool],
+                 kind: int = TASK_OTHER) -> None:
         self.name = name
         self.cls = cls
+        self.kind = kind
         self.fn = fn
         self.penalty_left = 0
         self.penalty_factor = 1.0
@@ -75,7 +81,7 @@ class HvScheduler:
     def __init__(self, cfg: TaijiConfig, tracer=None) -> None:
         self.cfg = cfg
         # stage-attributed tracing (repro_torch.obs): one sched_task span per
-        # task run, tagged with the priority class; None when disabled
+        # task run, tagged with the task's kind; None when disabled
         self._tr = tracer
         sc = cfg.scheduler
         self.n_shards = sc.shards
@@ -108,8 +114,8 @@ class HvScheduler:
 
     # ------------------------------------------------------------- task API
     def add_task(self, shard: int, name: str, cls: int,
-                 fn: Callable[[float], bool]) -> Task:
-        t = Task(name, cls, fn)
+                 fn: Callable[[float], bool], kind: int = TASK_OTHER) -> Task:
+        t = Task(name, cls, fn, kind)
         self.rqs[shard % self.n_shards].add(t)
         # new work: snap the shard out of idle backoff at its next wakeup
         self._idle_mult[shard % self.n_shards] = 1.0
@@ -229,15 +235,16 @@ class HvScheduler:
             if spent_total >= budget:
                 break
             q = quantum * t.penalty_factor
-            t0 = time.perf_counter()
+            tr = self._tr
+            t0 = _perf_ns() if tr is None else tr.begin(ST_SCHED_TASK)
             try:
                 more = t.fn(q)
             except Exception:
                 more = False
-            dt = time.perf_counter() - t0
-            tr = self._tr
+            dt_ns = _perf_ns() - t0
             if tr is not None:
-                tr.push(ST_SCHED_TASK, int(t0 * 1e9), int(dt * 1e9), cls)
+                tr.end(ST_SCHED_TASK, t0, t.kind, dt_ns)
+            dt = dt_ns / 1e9
             t.runtime_s += dt
             t.runs += 1
             spent_total += dt

@@ -44,10 +44,11 @@ from .backend import BackendStore
 from .config import TaijiConfig
 from .errors import CorruptionError, OutOfMemoryError, PinnedError
 from .lru import MultiLevelLRU
-from ..obs.tracer import (ST_BACKEND_LOAD, ST_BACKEND_STORE, ST_FAULT_ALLOC,
-                          ST_FAULT_BACKEND, ST_FAULT_COPY, ST_FAULT_DESC,
-                          ST_FAULT_MUTEX, ST_FAULT_READAHEAD, ST_FAULT_TOTAL,
-                          ST_READAHEAD_DECODE, ST_SWAP_IN, ST_SWAP_OUT)
+from ..obs.tracer import (H2D, ST_BACKEND_LOAD, ST_BACKEND_STORE,
+                          ST_FAULT_ALLOC, ST_FAULT_BACKEND, ST_FAULT_COPY,
+                          ST_FAULT_DESC, ST_FAULT_MUTEX, ST_FAULT_READAHEAD,
+                          ST_FAULT_TOTAL, ST_READAHEAD_DECODE,
+                          ST_RECLAIM_ROUND, ST_SWAP_IN, ST_SWAP_OUT)
 from .metrics import (FK_COMPRESSED, FK_FAST, FK_OTHER, FK_READAHEAD,
                       FK_ZERO, Metrics)
 from .ms import (H_PFN, H_PRESENT, H_STATE, K_COMPRESSED, K_FREE,
@@ -141,9 +142,9 @@ class SwapEngine:
         (non-zero kind, in-flight IO) falls back to the locked scalar
         path, which still cancels active writers (2.2).
         """
-        t0 = _perf_ns()
-        m = self.metrics
         tr = self._tr
+        t0 = _perf_ns() if tr is None else tr.begin(ST_FAULT_TOTAL)
+        m = self.metrics
         m.faults += 1
         if self._flags[gfn] & F_PINNED:   # lock-free read
             # fault on a registered DMA range: intercepted DMAR exception
@@ -256,7 +257,7 @@ class SwapEngine:
                 dur = _perf_ns() - t0
                 m.fault_ring.push(dur, fk)
                 if tr is not None:
-                    tr.push(ST_FAULT_TOTAL, t0, dur, fk)
+                    tr.end(ST_FAULT_TOTAL, t0, fk, dur)
                 return
 
         # slow path: locked scalar reference (cancels any active writer, 2.2)
@@ -276,7 +277,7 @@ class SwapEngine:
         dur = _perf_ns() - t0
         m.fault_ring.push(dur, fk)
         if tr is not None:
-            tr.push(ST_FAULT_TOTAL, t0, dur, fk)
+            tr.end(ST_FAULT_TOTAL, t0, fk, dur)
 
     def _fault_in_locked(self, req: Req, gfn: int, mp: int) -> int:
         """Locked scalar fault path. Returns the fault-kind code (FK_*)."""
@@ -374,6 +375,8 @@ class SwapEngine:
             if tr is not None:
                 t_p = _perf_ns()
                 tr.push(ST_FAULT_BACKEND, t_b, t_p - t_b)
+                if ok and kind != K_FREE:       # a free page is a memset
+                    tr.copy(ST_FAULT_BACKEND, H2D, self._mp_bytes)
             with req.mp_cond:
                 rec.bm_in[w] = _U64(int(rec.bm_in[w]) & ~bit & _MASK64)
                 if ok:
@@ -452,7 +455,7 @@ class SwapEngine:
         good: List[int] = []
         tr = self._tr
         if tr is not None:
-            t_ra = _perf_ns()
+            t_ra = tr.begin(ST_FAULT_READAHEAD)
         try:
             # one decompress + ONE whole-extent CRC (per-row crc32 calls
             # cost more than the check is worth; the record CRCs remain
@@ -500,6 +503,8 @@ class SwapEngine:
                 self.backend.write_rows(self.virt.phys.ms_rows(pfn),
                                         _np.array([p[0] for p in copy]),
                                         arr[[p[1] for p in copy]])
+                if tr is not None:
+                    tr.copy(ST_FAULT_READAHEAD, H2D, len(copy) * mb)
             consumed = ([mp] if my_ok else []) + good
             if consumed:
                 self.backend.consume_extent_rows(gfn, eid, consumed)
@@ -543,8 +548,7 @@ class SwapEngine:
                 f"CRC mismatch gfn={gfn} mp={mp} (extent {eid})")
         if tr is not None:
             # tag 1 = sibling MPs were actually materialized
-            tr.push(ST_FAULT_READAHEAD, t_ra, _perf_ns() - t_ra,
-                    1 if good else 0)
+            tr.end(ST_FAULT_READAHEAD, t_ra, 1 if good else 0)
         return FK_READAHEAD if good else FK_COMPRESSED
 
     # ========================================================== Swap_out ==
@@ -675,7 +679,7 @@ class SwapEngine:
         done = 0
         tr = self._tr
         if tr is not None:
-            t_so = _perf_ns()
+            t_so = tr.begin(ST_SWAP_OUT)
         # the write lock excludes faults and other writers, so the resident
         # set is fixed for the whole task: derive the MP index vector once
         # and walk it in cancellation-checked chunks (an explicit ``todo``
@@ -701,14 +705,14 @@ class SwapEngine:
             # a guest copy translated before the unmap is issued first
             self.virt.inflight.drain(gfn)
             if tr is not None:
-                t_st = _perf_ns()
+                t_st = tr.begin(ST_BACKEND_STORE)
             # the chunk's rows, read from the frame on the device (5): on
             # the stream of every guest write, after the latch above and
             # after every copy already in flight to this MS
             kinds, crcs = self.backend.store_batch(
                 gfn, idxs, self.virt.phys.ms_rows(pfn_now), rows=idxs)
             if tr is not None:
-                tr.push(ST_BACKEND_STORE, t_st, _perf_ns() - t_st)
+                tr.end(ST_BACKEND_STORE, t_st)
 
             with req.mp_cond:
                 rec.kinds[idxs] = kinds
@@ -727,7 +731,7 @@ class SwapEngine:
                     self.metrics.ms_swapped_out += 1
                 req.mp_cond.notify_all()
         if tr is not None:
-            tr.push(ST_SWAP_OUT, t_so, _perf_ns() - t_so)
+            tr.end(ST_SWAP_OUT, t_so)
         return done
 
     # =========================================================== Swap_in ==
@@ -780,7 +784,7 @@ class SwapEngine:
         done = 0
         tr = self._tr
         if tr is not None:
-            t_si = _perf_ns()
+            t_si = tr.begin(ST_SWAP_IN)
         # swapped-out set is fixed while we hold the write lock (faults
         # block; the IO latch below covers the store side): scan once
         with req.mp_cond:
@@ -813,13 +817,13 @@ class SwapEngine:
             ok = False
             try:
                 if tr is not None:
-                    t_bl = _perf_ns()
+                    t_bl = tr.begin(ST_BACKEND_LOAD)
                 # straight into the MS frame, in place: only the latched
                 # rows are written, so a racing guest write to another MP
                 # of this frame stays
                 self.backend.load_batch(gfn, idxs, kinds, crcs, ms, rows=idxs)
                 if tr is not None:
-                    tr.push(ST_BACKEND_LOAD, t_bl, _perf_ns() - t_bl)
+                    tr.end(ST_BACKEND_LOAD, t_bl)
                 ok = True
             finally:
                 with req.mp_cond:
@@ -837,12 +841,24 @@ class SwapEngine:
                             self.metrics.ms_swapped_in += 1
                     req.mp_cond.notify_all()
         if tr is not None:
-            tr.push(ST_SWAP_IN, t_si, _perf_ns() - t_si)
+            tr.end(ST_SWAP_IN, t_si)
         return done
 
     # ===================================================== reclaim rounds ==
     def reclaim_round(self, budget_s: Optional[float] = None) -> int:
-        """One background reclaim round (BACK priority task body).
+        """One background reclaim round (BACK priority task body), one
+        ``reclaim_round`` span where traced; returns the MPs reclaimed."""
+        tr = self._tr
+        if tr is None:
+            return self._reclaim_round(budget_s)
+        t0 = tr.begin(ST_RECLAIM_ROUND)
+        try:
+            return self._reclaim_round(budget_s)
+        finally:
+            tr.end(ST_RECLAIM_ROUND, t0)
+
+    def _reclaim_round(self, budget_s: Optional[float]) -> int:
+        """The round's body.
 
         The round issues whole-MS batches: the watermark policy sizes the
         candidate pick from the distance back to ``high`` (never more MSs
@@ -856,7 +872,6 @@ class SwapEngine:
         if self._lru_pending:
             self.drain_lru_pending()
         free = self._wm.publish(self.virt.free_ms)
-        self.metrics.free_ms_timeline.record(free)
         if not self.watermark.should_start_reclaim(free):
             return 0
         deadline = (time.monotonic() + budget_s) if budget_s else None
@@ -974,10 +989,6 @@ class SwapEngine:
         return drained
 
     # ------------------------------------------------------------ utilities
-    def resident_cold_fraction(self) -> float:
-        hot, cold = self.lru.hot_count(), self.lru.cold_count()
-        return cold / (hot + cold) if (hot + cold) else 0.0
-
     def ms_fully_swapped(self, gfn: int) -> bool:
         """``True`` when every MP of ``gfn`` lives in the backend.
 

@@ -73,10 +73,12 @@ class TaijiSystem:
             from ..obs.tracer import SpanTracer
             self.metrics.tracer = SpanTracer(cap=cfg.obs.ring_capacity,
                                              max_spans=cfg.obs.max_spans)
-        self.virt = VirtualizationLayer(cfg, self.phys, self.mpool)
+        self.virt = VirtualizationLayer(cfg, self.phys, self.mpool,
+                                        tracer=self.metrics.tracer)
         self.backend = BackendStore(cfg, self.metrics, device=self.device)
         self.reqs = ReqTree(cfg, self.mpool)
-        self.lru = MultiLevelLRU(cfg, self.virt.table.test_and_clear_accessed)
+        self.lru = MultiLevelLRU(cfg, self.virt.table.test_and_clear_accessed,
+                                 tracer=self.metrics.tracer)
         self.watermark = WatermarkPolicy(cfg)
         self.engine = SwapEngine(cfg, self.virt, self.backend, self.reqs,
                                  self.lru, self.watermark, self.metrics)
@@ -263,7 +265,8 @@ class TaijiSystem:
             return scan
 
         for w in range(nw):
-            self.scheduler.add_task(w, f"lru/{w}", sched.BACK, make_scan(w))
+            self.scheduler.add_task(w, f"lru/{w}", sched.BACK, make_scan(w),
+                                    sched.TASK_LRU_SCAN)
 
         def reclaim(quantum: float) -> bool:
             # the hv_sched quantum bounds the round: reclaim stops starting
@@ -271,13 +274,8 @@ class TaijiSystem:
             self.engine.reclaim_round(budget_s=quantum)
             return True
 
-        self.scheduler.add_task(0, "reclaim", sched.BACK, reclaim)
-
-        def idle(_quantum: float) -> bool:
-            self.metrics.hot_cold_timeline.record(self.engine.resident_cold_fraction())
-            return True
-
-        self.scheduler.add_task(0, "idle-stats", sched.IDLE, idle)
+        self.scheduler.add_task(0, "reclaim", sched.BACK, reclaim,
+                                sched.TASK_RECLAIM)
         self.scheduler.start()
 
     def stop_background(self) -> None:

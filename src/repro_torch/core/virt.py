@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..analysis.lock_order import named_lock
+from ..obs.tracer import D2H, H2D, ST_GUEST_COPY, TAG_READ, TAG_WRITE
 from .config import TaijiConfig
 from .errors import InvalidStateError, OutOfMemoryError, PinnedError
 from .mpool import Handle, Mpool
@@ -85,6 +86,25 @@ def frame_bytes(t: torch.Tensor) -> bytes:
     """The bytes of a frame slice (a D2H copy on the card, which waits
     for the stream)."""
     return t.cpu().numpy().tobytes()
+
+
+def traced_frame_bytes(tr, t: torch.Tensor, tag: int) -> bytes:
+    """:func:`frame_bytes` as one ``guest_copy`` span of the access op
+    ``tag``, its bytes counted device to host in ``tr``."""
+    t0 = tr.begin(ST_GUEST_COPY)
+    data = frame_bytes(t)
+    tr.end(ST_GUEST_COPY, t0, tag)
+    tr.copy(ST_GUEST_COPY, D2H, len(data))
+    return data
+
+
+def traced_copy_in(tr, t: torch.Tensor, data, tag: int) -> None:
+    """``t.copy_(host_u8(data))`` as one ``guest_copy`` span of the access
+    op ``tag``, its bytes counted host to device in ``tr``."""
+    t0 = tr.begin(ST_GUEST_COPY)
+    t.copy_(host_u8(data))
+    tr.end(ST_GUEST_COPY, t0, tag)
+    tr.copy(ST_GUEST_COPY, H2D, t.numel())
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -504,10 +524,13 @@ class VirtualizationLayer:
     accesses use :meth:`root_access`.
     """
 
-    def __init__(self, cfg: TaijiConfig, phys: PhysicalMemory, mpool: Mpool) -> None:
+    def __init__(self, cfg: TaijiConfig, phys: PhysicalMemory, mpool: Mpool,
+                 tracer=None) -> None:
         self.cfg = cfg
         self.phys = phys
         self.mpool = mpool
+        # repro_torch.obs: a guest copy's guest_copy span; None when disabled
+        self._tr = tracer
         self.aspace = AddressSpace(cfg)
         self.table = BlockTable(cfg, mpool)
         # fault handler is installed by the swap engine; None -> faults raise
@@ -588,17 +611,28 @@ class VirtualizationLayer:
             self.table.mark_accessed(gfn)
             return gfn, off, pfn
 
-    def guest_read(self, gva: int, nbytes: int) -> bytes:
+    def guest_read(self, gva: int, nbytes: int, tag: int = TAG_READ) -> bytes:
+        """``nbytes`` at ``gva``, faulting in what they cover; ``tag``: the
+        access op of the copy's span."""
         gfn, off, pfn = self._enter_resolved(gva, nbytes)
         try:
-            return frame_bytes(self.phys.ms_view(pfn)[off : off + nbytes])
+            frame = self.phys.ms_view(pfn)[off : off + nbytes]
+            if self._tr is None:
+                return frame_bytes(frame)
+            return traced_frame_bytes(self._tr, frame, tag)
         finally:
             self.inflight.leave(gfn)
 
-    def guest_write(self, gva: int, data: bytes) -> None:
+    def guest_write(self, gva: int, data: bytes, tag: int = TAG_WRITE) -> None:
+        """``data`` at ``gva``, faulting in what it covers; ``tag``: the
+        access op of the copy's span."""
         gfn, off, pfn = self._enter_resolved(gva, len(data))
         try:
-            self.phys.ms_view(pfn)[off : off + len(data)].copy_(host_u8(data))
+            frame = self.phys.ms_view(pfn)[off : off + len(data)]
+            if self._tr is None:
+                frame.copy_(host_u8(data))
+            else:
+                traced_copy_in(self._tr, frame, data, tag)
         finally:
             self.inflight.leave(gfn)
 

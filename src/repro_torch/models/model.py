@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.virt import resolve_device
 from ..kernels import ops
+from ..obs.tracer import ST_DECODE_STEP
 from .config import ArchConfig
 from .layers import (apply_rope, attention_block, mrope_cos_sin, rms_norm,
                      rope_angles, swiglu)
@@ -491,9 +492,13 @@ def _paged_kv_write(pool_l: torch.Tensor, block_table: torch.Tensor,
 @torch.no_grad()
 def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
                 cache: Cache, mrope_pos: Optional[torch.Tensor] = None,
-                input_embeds: Optional[torch.Tensor] = None
+                input_embeds: Optional[torch.Tensor] = None, tracer=None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: tokens (B,) -> (logits (B, V), cache').
+
+    ``tracer`` (a :class:`repro_torch.obs.tracer.SpanTracer`, or None)
+    records the call as one ``decode_step`` span: the host's dispatch of
+    the step, which returns before the card has run it.
 
     ``input_embeds`` (B, D), if given, takes the place of the token
     embedding (a multimodal prefix replayed through decode);
@@ -511,6 +516,8 @@ def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
     ``group * (g - 1) + mi``. A MoE layer runs ``moe_ffn`` on the (B, 1,
     D) batch. No autograd.
     """
+    if tracer is not None:
+        t0 = tracer.begin(ST_DECODE_STEP)
     cdt = DTYPES[cfg.compute_dtype]
     B = tokens.shape[0]
     hd = cfg.head_dim_
@@ -607,6 +614,8 @@ def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
     logits = logits_from_hidden(model, cfg, x)
     new_cache = dict(cache)
     new_cache["kv_len"] = kv_len
+    if tracer is not None:
+        tracer.end(ST_DECODE_STEP, t0)
     return logits, new_cache
 
 

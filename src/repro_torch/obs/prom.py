@@ -3,7 +3,8 @@
 One render path for everything an external scraper (or the future
 autoscaler) consumes: the deterministic event counters, the latency
 histograms (native power-of-two buckets, in seconds), derived gauges,
-and -- when tracing is enabled -- per-stage span aggregates.
+and -- when tracing is enabled -- per-stage span aggregates and the
+per-stage counts and bytes of copies across PCIe.
 
 The module is import-light on purpose: it reads ``Metrics`` and
 ``SpanTracer`` duck-typed, so ``repro_torch.core.metrics`` can delegate here
@@ -89,4 +90,16 @@ def render_prom(metrics, tracer=None, prefix: str = "taiji") -> str:
                              f"{t['count']}")
                 lines.append(f"{prefix}_stage_max_seconds{{{lab}}} "
                              f"{t['max_ns'] / 1e9:.9f}")
+        copies = tracer.copies()
+        if copies:
+            lines.append(f"# TYPE {prefix}_stage_copies_total counter")
+            lines.append(f"# TYPE {prefix}_stage_copy_bytes_total counter")
+            for stage in sorted(copies):
+                for d in sorted(copies[stage]):
+                    c = copies[stage][d]
+                    lab = f'stage="{_esc(stage)}",dir="{d}"'
+                    lines.append(f"{prefix}_stage_copies_total{{{lab}}} "
+                                 f"{c['count']}")
+                    lines.append(f"{prefix}_stage_copy_bytes_total{{{lab}}} "
+                                 f"{c['bytes']}")
     return "\n".join(lines) + "\n"

@@ -73,9 +73,11 @@ def prefill_step(params: M.Model, batch: M.Batch, cfg: ArchConfig
 
 def serve_step(params: M.Model, tokens: torch.Tensor, cache: M.Cache,
                cfg: ArchConfig, mrope_pos: Optional[torch.Tensor] = None,
-               input_embeds: Optional[torch.Tensor] = None
+               input_embeds: Optional[torch.Tensor] = None, tracer=None
                ) -> Tuple[torch.Tensor, M.Cache]:
     """One decode step: new token for every sequence against its KV and
     SSM state; ``input_embeds`` (B, D) in place of the tokens' embedding
-    (a vision prefix), beyond the reference's arguments."""
-    return M.decode_step(params, cfg, tokens, cache, mrope_pos, input_embeds)
+    (a vision prefix), beyond the reference's arguments; ``tracer`` (a
+    ``SpanTracer`` or None) gets the step's ``decode_step`` span."""
+    return M.decode_step(params, cfg, tokens, cache, mrope_pos, input_embeds,
+                         tracer)
