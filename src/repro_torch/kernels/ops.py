@@ -46,6 +46,11 @@ from . import _build, ref
 # ("quantize", "dequantize") entries appear with their first launch
 launches: Dict[str, int] = {"gather": 0, "scatter": 0, "zero": 0,
                             "fletcher": 0}
+# launches recorded into CUDA graphs, counted apart: a launch made while
+# the launching thread's stream captures runs at each replay, not now. A
+# graph's owner takes this tally's change over its capture and adds it to
+# ``launches`` at each replay (count_graph); never reset
+captured: Dict[str, int] = {}
 # host transfers around the swap kernels, counted the same way: index
 # vectors uploaded on their own, and host waits for a verified scatter's
 # verdict
@@ -65,8 +70,17 @@ def reset_launches() -> None:
 
 
 def _count(name: str, n: int = 1) -> None:
+    tally = captured if torch.cuda.is_current_stream_capturing() else launches
     with _count_lock:
-        launches[name] = launches.get(name, 0) + n
+        tally[name] = tally.get(name, 0) + n
+
+
+def count_graph(recorded: Dict[str, int]) -> None:
+    """Count a CUDA graph's replay: ``recorded`` is what its capture added
+    to :data:`captured`, name by name."""
+    with _count_lock:
+        for name, n in recorded.items():
+            launches[name] = launches.get(name, 0) + n
 
 
 def _count_transfer(name: str) -> None:

@@ -37,7 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.virt import resolve_device
 from ..kernels import ops
-from ..obs.tracer import ST_DECODE_STEP
+from ..obs.tracer import (DECODE_CAPTURE, DECODE_EAGER, DECODE_REPLAY,
+                          ST_DECODE_STEP)
 from .config import ArchConfig
 from .layers import (apply_rope, attention_block, mrope_cos_sin, rms_norm,
                      rope_angles, swiglu)
@@ -201,6 +202,9 @@ class Model(nn.Module):
             layers = (DecoderLayer(cfg, dtype, device, moe=cfg.moe is not None)
                       for _ in range(cfg.n_layers - int(first_dense(cfg))))
         self.layers = nn.ModuleList(layers)
+        # the decode step captured for replay, one at a time
+        # (decode_step); it dies with the model
+        self.decode_graph: Optional[_DecodeGraph] = None
 
     def decoder_layers(self):
         """Every attention decoder layer in order, ``layer0`` first (the
@@ -498,7 +502,17 @@ def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
 
     ``tracer`` (a :class:`repro_torch.obs.tracer.SpanTracer`, or None)
     records the call as one ``decode_step`` span: the host's dispatch of
-    the step, which returns before the card has run it.
+    the step, which returns before the card has run it. Its tag says how
+    the step ran: ``DECODE_EAGER``, ``DECODE_REPLAY`` or
+    ``DECODE_CAPTURE`` (``repro_torch.obs.tracer``).
+
+    On the card, a step that :func:`graph_eligible` admits runs as one
+    CUDA graph: the first call on a (model, cache) key runs eagerly, the
+    second captures the step and replays it, and later calls on the key
+    replay it (:func:`_graph_step`). Every other call runs the same body
+    (:func:`decode_body`) eagerly. Either way the logits and ``kv_len``
+    returned are tensors of their own: a later step does not overwrite
+    them, and a caller may reset ``kv_len`` in place.
 
     ``input_embeds`` (B, D), if given, takes the place of the token
     embedding (a multimodal prefix replayed through decode);
@@ -518,6 +532,26 @@ def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
     """
     if tracer is not None:
         t0 = tracer.begin(ST_DECODE_STEP)
+    if graph_eligible(cfg, tokens.device, cache, mrope_pos, input_embeds):
+        logits, kv_len, how = _graph_step(model, cfg, tokens, cache)
+    else:
+        logits, kv_len = decode_body(model, cfg, tokens, cache, mrope_pos,
+                                     input_embeds)
+        how = DECODE_EAGER
+    new_cache = dict(cache)
+    new_cache["kv_len"] = kv_len
+    if tracer is not None:
+        tracer.end(ST_DECODE_STEP, t0, how)
+    return logits, new_cache
+
+
+def decode_body(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
+                cache: Cache, mrope_pos: Optional[torch.Tensor] = None,
+                input_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode step itself, run eagerly or under capture: (logits,
+    ``kv_len + 1``), the cache's pool and states written in place. Call it
+    without autograd (:func:`decode_step` does)."""
     cdt = DTYPES[cfg.compute_dtype]
     B = tokens.shape[0]
     hd = cfg.head_dim_
@@ -611,12 +645,114 @@ def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
             moe = "moe" in lp
             x = x + ffn(h, lp["moe" if moe else "mlp"], moe)
     x = rms_norm(x, model.final_norm.to(x.dtype), cfg.norm_eps)
-    logits = logits_from_hidden(model, cfg, x)
-    new_cache = dict(cache)
-    new_cache["kv_len"] = kv_len
-    if tracer is not None:
-        tracer.end(ST_DECODE_STEP, t0)
-    return logits, new_cache
+    return logits_from_hidden(model, cfg, x), kv_len
+
+
+# ---------------------------------------------------- the step as a graph
+def graph_eligible(cfg: ArchConfig, device: torch.device, cache: Cache,
+                   mrope_pos: Optional[torch.Tensor] = None,
+                   input_embeds: Optional[torch.Tensor] = None) -> bool:
+    """Whether a decode step on ``device`` runs as a CUDA graph: on the
+    card, every layer attention through the paged pool and a dense FFN (no
+    MoE layer, whose token dispatch is not captured, and no mamba state),
+    and neither ``input_embeds`` nor ``mrope_pos`` passed. Nothing in such
+    a step reads a value back to the host, and its shapes are the
+    cache's."""
+    return (device.type == "cuda" and mrope_pos is None
+            and input_embeds is None and cfg.moe is None
+            and cfg.mamba is None and "kv_pool" in cache)
+
+
+class _DecodeGraph:
+    """One decode step of a (model, cache) captured as a CUDA graph.
+
+    ``key`` is what the graph reads by address (:func:`_graph_key`);
+    ``graph`` is None until the second call on the key captures it.
+    ``tokens`` and ``kv_len`` are the static inputs, copied in before each
+    replay; ``logits`` and ``next_len`` the static outputs, cloned out
+    after it; ``launched`` the counted kernels' launches the capture
+    recorded, which each replay makes (``ops.captured``)."""
+
+    __slots__ = ("key", "graph", "tokens", "kv_len", "logits", "next_len",
+                 "launched")
+
+    def __init__(self, key: tuple) -> None:
+        self.key, self.graph = key, None
+
+
+_data_ptr = torch.Tensor.data_ptr
+
+
+def _params(module: nn.Module, out: list) -> list:
+    """Every parameter of ``module``'s tree, in registration order (a
+    plain walk: ``parameters()`` costs several times as much a step)."""
+    out.extend(module._parameters.values())
+    for child in module._modules.values():
+        if child is not None:
+            _params(child, out)
+    return out
+
+
+def _graph_key(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
+               cache: Cache) -> tuple:
+    """What a captured step holds fixed: the config, the batch's shapes
+    and dtypes, and the address of every tensor the graph reads or writes
+    in place -- each parameter, the pool and the block table (with their
+    shapes, strides and dtypes). A replaced parameter or a new cache
+    changes it; new values at the same addresses do not."""
+    pool, table, kv_len = cache["kv_pool"], cache["block_table"], cache["kv_len"]
+    return (cfg, tokens.device, tokens.shape, tokens.dtype, kv_len.shape,
+            kv_len.dtype, _data_ptr(pool), pool.shape, pool.stride(),
+            pool.dtype, _data_ptr(table), table.shape, table.stride(),
+            table.dtype, tuple(map(_data_ptr, _params(model, []))))
+
+
+def _graph_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
+                cache: Cache) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The step through the model's one graph: (logits, ``kv_len + 1``,
+    how it ran). A key the model's graph was not made for drops that
+    graph and runs eagerly (which warms cuBLAS and loads the kernels);
+    the next call on the key captures, then every call replays."""
+    key = _graph_key(model, cfg, tokens, cache)
+    g = model.decode_graph
+    if g is None or g.key != key:
+        model.decode_graph = None           # its memory goes back first
+        logits, kv_len = decode_body(model, cfg, tokens, cache)
+        model.decode_graph = _DecodeGraph(key)
+        return logits, kv_len, DECODE_EAGER
+    how = DECODE_REPLAY
+    with torch.cuda.device(tokens.device):
+        if g.graph is None:
+            _capture(g, model, cfg, tokens, cache)
+            how = DECODE_CAPTURE
+        g.tokens.copy_(tokens)
+        g.kv_len.copy_(cache["kv_len"])
+        g.graph.replay()
+        ops.count_graph(g.launched)
+        return g.logits.clone(), g.next_len.clone(), how
+
+
+def _capture(g: _DecodeGraph, model: Model, cfg: ArchConfig,
+             tokens: torch.Tensor, cache: Cache) -> None:
+    """Record the step into ``g``; nothing runs until the first replay.
+    Capture errors only on the capturing thread's own unsafe calls
+    (``thread_local``): hv_sched threads may launch their kernels
+    meanwhile, and those count at once, not in the graph's tally (a
+    launch is counted by its own thread's stream, ``ops._count``)."""
+    kv_len = cache["kv_len"]
+    g.tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
+                           device=tokens.device)
+    g.kv_len = torch.empty(kv_len.shape, dtype=kv_len.dtype,
+                           device=kv_len.device)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(ops.captured)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        g.logits, g.next_len = decode_body(model, cfg, g.tokens,
+                                           dict(cache, kv_len=g.kv_len))
+    g.launched = {name: n - before.get(name, 0)
+                  for name, n in ops.captured.items()
+                  if n != before.get(name, 0)}
+    g.graph = graph
 
 
 # ================================================================= prefill

@@ -3,8 +3,8 @@
 One render path for everything an external scraper (or the future
 autoscaler) consumes: the deterministic event counters, the latency
 histograms (native power-of-two buckets, in seconds), derived gauges,
-and -- when tracing is enabled -- per-stage span aggregates and the
-per-stage counts and bytes of copies across PCIe.
+and -- when tracing is enabled -- per-stage span aggregates (and per
+stage and tag) and the per-stage counts and bytes of copies across PCIe.
 
 The module is import-light on purpose: it reads ``Metrics`` and
 ``SpanTracer`` duck-typed, so ``repro_torch.core.metrics`` can delegate here
@@ -90,6 +90,17 @@ def render_prom(metrics, tracer=None, prefix: str = "taiji") -> str:
                              f"{t['count']}")
                 lines.append(f"{prefix}_stage_max_seconds{{{lab}}} "
                              f"{t['max_ns'] / 1e9:.9f}")
+            # the same split by the span's tag (access op, fault kind, shard,
+            # task kind, or how a decode step ran)
+            lines.append(f"# TYPE {prefix}_stage_tag_seconds_total counter")
+            lines.append(f"# TYPE {prefix}_stage_tag_spans_total counter")
+            for stage in sorted(totals):
+                for tag, t in sorted(totals[stage]["by_tag"].items()):
+                    lab = f'stage="{_esc(stage)}",tag="{tag}"'
+                    lines.append(f"{prefix}_stage_tag_seconds_total{{{lab}}} "
+                                 f"{t['total_ns'] / 1e9:.9f}")
+                    lines.append(f"{prefix}_stage_tag_spans_total{{{lab}}} "
+                                 f"{t['count']}")
         copies = tracer.copies()
         if copies:
             lines.append(f"# TYPE {prefix}_stage_copies_total counter")

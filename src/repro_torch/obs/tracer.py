@@ -151,6 +151,10 @@ ST_FLEET_PLACEMENT = _IDX["fleet_placement"]
 # bit 2 carrying FK_FAST
 TAG_READ, TAG_WRITE, TAG_READ_MANY, TAG_WRITE_MANY, TAG_GATHER, TAG_SCATTER = \
     range(6)
+# decode_step tags: how the step ran (models.model.decode_step) -- its
+# body eagerly, a replay of its CUDA graph, or the capture of that graph
+# followed by its first replay
+DECODE_EAGER, DECODE_REPLAY, DECODE_CAPTURE = range(3)
 
 # stages whose spans, opened with SpanTracer.begin, are also host ranges
 # in torch.profiler's timeline while it records
