@@ -23,8 +23,12 @@ freeing its device memory before the next:
                    pair bit for bit (tests/test_kernels.py's sweep in
                    f32/f16/bf16, zero, -0.0 and tie MPs, qwen3-4b's KV
                    block), paged attention also at jamba's and qwen2-vl's
-                   head groups; time kernel, plain version and library call,
+                   head groups, paged latent attention (MLA) within its
+                   tolerances at the DeepSeek-V2-Lite cell's shape (64
+                   sequences, 16 heads of 576 / 512, bf16 and f32);
+                   time kernel, plain version and library call,
                    paged attention also at the kv_len of ``ATTN_SWEEP``,
+                   paged MLA also at 256, 1024 and the cell's lengths,
                    the swap kernels, paged attention and the quantize pair also
                    L2-cold, and with ``--compare-sources DIR`` the
                    swap-in's chunk write (host clock), Fletcher, paged
@@ -128,11 +132,18 @@ freeing its device memory before the next:
                    M-RoPE positions, 4 x 320 decoded against the forward,
                    every layer through the paged kernel; (e)
                    hubert-xlarge at full width, 3 steps of 4 x 1024
-                   frames through ``run_training``.
+                   frames through ``run_training``;
+15. mla-serve   -- DeepSeek-V2-Lite at full width cut to 4 of 27 layers
+                   (bf16): 64 requests of 256 prompt tokens fed through
+                   ``serve_step`` over the latent pool, then 32 greedy
+                   tokens; every attention layer of every step must launch
+                   the paged MLA kernel and none the GQA kernel (decode
+                   step ms, tokens/s, byte bound, device busy share, peak
+                   memory).
 
 The last two lines of standard output are the kernel table and the
-device line as JSON; the ``{"bench": ...}``, ``{"train": ...}`` and
-``{"families": ...}`` lines come before them. No
+device line as JSON; the ``{"bench": ...}``, ``{"train": ...}``,
+``{"families": ...}`` and ``{"mla_serve": ...}`` lines come before them. No
 card, or no ``src/repro_torch`` beside this file: a non-zero exit and no
 result.
 """
@@ -175,6 +186,7 @@ PASSIVE_WINDOW_MS = 128
 SWAP_SOURCE = "src/repro_torch/csrc/swap_kernels.cu"
 ATTN_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 QUANT_SOURCE = "src/repro_torch/csrc/quantize.cu"
+MLA_SOURCE = "src/repro_torch/csrc/paged_mla.cu"
 KERNELS = {
     # name: (ops counter, TPU kernel it replaces, source, main path)
     "gather_nonzero_rows": ("gather", "src/repro/kernels/swap_copy.py:40",
@@ -198,6 +210,9 @@ KERNELS = {
     "paged_decode_attention": ("paged_attn",
                                "src/repro/kernels/paged_attention.py:104",
                                ATTN_SOURCE, "serve"),
+    # the port's own: the TPU package has no latent attention
+    "paged_mla_decode": ("paged_mla", "none (no TPU kernel)", MLA_SOURCE,
+                         "serve (deepseek-v2-lite)"),
     # no path of either package calls the quantize pair: their launches
     # are the quantize check's own
     "block_quantize": ("quantize", "src/repro/kernels/compress.py:38",
@@ -228,6 +243,17 @@ ATTN_TOL = {"float32": 2e-5, "float16": 2e-2, "bfloat16": 2e-2}
 # the families' (query heads, KV heads) of 128 that decode through the
 # paged kernel: jamba's group of 8, qwen2-vl's of 6 (phase 14)
 ATTN_GROUPS = {"jamba-1.5-large-398b": (64, 8), "qwen2-vl-2b": (12, 2)}
+# paged latent attention (phases 2 and 15) at the shape of the benchmark's
+# DeepSeek-V2-Lite decode cell: 64 sequences over a 1024-position table of
+# 64-token blocks, sequence i at context 256 + i when its window opens;
+# tests/test_torch_mla.py's kernel tolerances (atol and rtol alike)
+MLA_ARCH, MLA_BATCH, MLA_MAX_SEQ, MLA_BT = "deepseek-v2-lite", 64, 1024, 64
+MLA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the MLA serve (phase 15): DeepSeek-V2-Lite at full width cut to 4 of its
+# 27 layers (layer 0 dense, 3 MoE: 2.25 B parameters), as the families
+# phase cuts jamba; the cell's 256-token prompt through serve_step, then
+# 32 greedy tokens
+MLA_LAYERS, MLA_PROMPT, MLA_GEN = 4, 256, 32
 # the quantize pair at qwen3-4b's KV block: the elastic-KV phase's 24
 # physical blocks of 64 tokens x 36 layers x K+V x 8 heads x 128, bf16,
 # 8 MPs each
@@ -892,6 +918,119 @@ def check_paged_attention(torch, ops, ref, seed: int) -> dict:
                     "library_l2_cold_us": lib_cold[0],
                     "kv_len_sweep_l2_warm": sweep}))
     return {"paged_decode_attention": r}
+
+
+def _mla_library(torch, q, pool, table, kv: int, rank: int, scale: float):
+    """The library call for paged MLA decode at every sequence's length
+    ``kv``: ``index_select`` of the table's blocks, then
+    ``scaled_dot_product_attention`` with the heads as the queries of one
+    head over the shared latent rows, whose first ``rank`` values are the
+    value."""
+    import torch.nn.functional as F
+    B, H, W = q.shape
+    _, bt, _ = pool.shape
+    n_blk = -(-kv // bt)
+    mask = (torch.arange(n_blk * bt, device=q.device) < kv)[None, None, None, :]
+    idx = table[:, :n_blk].reshape(-1)
+
+    def call():
+        rows = pool.index_select(0, idx).view(B, 1, n_blk * bt, W)
+        return F.scaled_dot_product_attention(
+            q[:, None], rows, rows[..., :rank], attn_mask=mask, scale=scale)[:, 0]
+    return call
+
+
+def check_paged_mla(torch, ops, ref, seed: int) -> dict:
+    """Phase 2, paged latent attention (MLA): the kernel against its plain
+    version within tests/test_torch_mla.py's tolerances at the
+    DeepSeek-V2-Lite cell's shape (64 sequences, 16 heads of 576 / 512, a
+    permuted table of 16 blocks of 64 tokens), bf16 and f32, with lengths
+    0, 1, partial and whole blocks, one and several 256-position splits,
+    1024, and the cell's 256 + i for the rest; then, bf16, timed at kv_len
+    512 against the plain version and ``index_select`` +
+    ``scaled_dot_product_attention``, L2-warm and L2-cold, and at 256,
+    1024 and the cell's lengths beside the library call (the cell's:
+    beside none), L2-warm. The bound is the larger of the bytes
+    (``ops.paged_mla_cost``'s, with every sequence's latent rows) over
+    HBM_BYTES_PER_S and the FLOPs over the tensor cores' bf16 peak."""
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed + 23)
+    H, W, R = ops.MLA_SHAPE
+    scale = get_config(MLA_ARCH).softmax_scale()
+    B, bt, mbs = MLA_BATCH, MLA_BT, MLA_MAX_SEQ // MLA_BT
+    n_blocks = B * mbs
+    table = torch.randperm(n_blocks, generator=g).to(torch.int32).view(B, mbs).to(dev)
+    cell = [256 + i for i in range(B)]
+    edges = [0, 1, 37, 63, 64, 65, 255, 256, 257, 600, 1023, 1024]
+    lens = edges + cell[len(edges):]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    err, data = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        pool = torch.randn((n_blocks, bt, W), generator=g).to(dev, dt)
+        q = torch.randn((B, H, W), generator=g).to(dev, dt)
+        got = ops.paged_mla_decode(q, pool, table, kv_len, R, scale).float()
+        want = ref.paged_mla_decode(q.float(), pool.float(), table, kv_len, R, scale)
+        torch.cuda.synchronize()
+        tol = MLA_TOL[name]
+        err[name] = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            fail(f"paged_mla_decode differs from plain at B {B}, {name}: max abs "
+                 f"err {err[name]} beyond atol = rtol = {tol}")
+        if float(got[0].abs().max()) != 0.0:
+            fail(f"paged_mla_decode: kv_len 0 did not give zeros ({name})")
+        data[name] = (q, pool)
+    log(json.dumps({"paged_mla_check": err, "tolerance": MLA_TOL}))
+
+    q, pool = data["bfloat16"]
+    del data
+    out = torch.empty((B, H, R), dtype=q.dtype, device=dev)
+
+    def launch(kv):
+        return lambda: ops.launch_paged_mla(q, pool, table, kv, out, scale)
+
+    def bound(rows):
+        flops, nbytes = ops.paged_mla_cost(q, pool, table, 0, R)
+        flops += 2 * rows * H * (W + R)
+        nbytes += rows * W * pool.element_size()
+        return bound_us(nbytes, flops, BF16_FLOPS_PER_S)
+
+    def lengths(ls):
+        return torch.tensor(ls, dtype=torch.int32, device=dev)
+
+    sweep = {}
+    for label, ls in (("256", [256] * B), ("1024", [1024] * B), ("cell", cell)):
+        sweep[label] = dict(
+            kernel_us=time_us(torch, launch(lengths(ls))),
+            library_us=(None if label == "cell" else time_us(
+                torch, _mla_library(torch, q, pool, table, ls[0], R, scale))),
+            bound_us=bound(sum(ls))[0])
+        log(json.dumps({"paged_mla_kv_len": label, "l2": "warm", **sweep[label]}))
+    kv512 = lengths([512] * B)
+    lib_err = float((_mla_library(torch, q, pool, table, 512, R, scale)().float()
+                     - ops.paged_mla_decode(q, pool, table, kv512, R, scale).float()
+                     ).abs().max())
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    cold = time_cold_us(torch, launch(kv512), flush)
+    del flush
+    r = dict(shape=f"q {tuple(q.shape)} bf16, pool {tuple(pool.shape)} bf16, "
+                   f"kv_len 512", max_abs_err=err["bfloat16"],
+             kernel_us=time_us(torch, launch(kv512)),
+             plain_us=time_us(torch, lambda: ref.paged_mla_decode(
+                 q, pool, table, kv512, R, scale), inner=10),
+             library_us=time_us(torch, _mla_library(torch, q, pool, table, 512,
+                                                    R, scale)),
+             bound=bound(512 * B))
+    log(json.dumps({"kernel": "paged_mla_decode", "shape": r["shape"],
+                    "max_abs_err": err, "tolerance": MLA_TOL,
+                    "library_max_abs_err": lib_err,
+                    "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
+                    "bound_us": r["bound"][0], "bound_by": r["bound"][1],
+                    "library_us": r["library_us"], "l2_cold_us": cold[0],
+                    "flush_plus_kernel_us": cold[1], "flush_us": cold[2],
+                    "kv_len_sweep_l2_warm": sweep}))
+    return {"paged_mla_decode": r}
 
 
 def compare_old_new(torch, ops, lib_old, seed: int) -> dict:
@@ -3303,6 +3442,121 @@ def families_phase(torch, ops, seed: int, smi: str) -> dict:
     return out
 
 
+def mla_serve(torch, ops, seed: int, smi: str) -> dict:
+    """Phase 15: DeepSeek-V2-Lite at full width (d 2048, 16 heads of MLA
+    over a 512 + 64 latent, 64 routed experts of 1408 top-6 + 2 shared,
+    vocab 102400; weights from ``seed``, cast once to bf16), cut to
+    MLA_LAYERS layers, decoding MLA_BATCH requests through ``serve_step``
+    over the latent pool: a MLA_PROMPT-token prompt fed token by token,
+    then MLA_GEN greedy tokens. From a reset just before the prompt,
+    every attention layer of every step must launch the paged MLA kernel
+    once and the GQA kernel never; the pool is 576 values a token and
+    layer; logits finite, ``kv_len`` the steps taken. Reports the decode
+    step (mean and median ms), tokens/s, its byte bound (every weight
+    read once, the embedding only for the batch's rows, and each layer's
+    latent rows at the greedy window's mean length), the device busy
+    share of 8 profiled steps and the peak memory."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import serve_step
+
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    model = M.cast_params(M.init_params(cfg, seed=seed, device="cuda"))
+    cache = M.init_cache(cfg, MLA_BATCH, MLA_MAX_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    pool = cache.get("latent_pool")
+    n_attn = M.attn_layer_count(cfg)
+    if pool is None or "kv_pool" in cache or (pool.shape[0], pool.shape[-1]) != (
+            n_attn, full.mla.kv_lora_rank + full.mla.qk_rope_head_dim):
+        fail(f"mla-serve: the cache holds {sorted(cache)}, latent pool "
+             f"{None if pool is None else tuple(pool.shape)}; wanted "
+             f"({n_attn}, n_blocks, bt, 576) and no K/V pool")
+    g = torch.Generator(device="cpu").manual_seed(seed + 29)
+    prompts = torch.randint(0, cfg.vocab, (MLA_BATCH, MLA_PROMPT),
+                            generator=g).to("cuda")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(MLA_PROMPT):
+        logits, cache = serve_step(model, prompts[:, t], cache, cfg)
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    tok = logits.argmax(-1)
+    step_ms = []
+    t_gen = time.perf_counter()
+    for _ in range(MLA_GEN):
+        t0 = time.perf_counter()
+        logits, cache = serve_step(model, tok, cache, cfg)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    gen_s = time.perf_counter() - t_gen
+    steps = MLA_PROMPT + MLA_GEN
+    launches = ops.launches.get("paged_mla", 0)
+    if launches != n_attn * steps or ops.launches.get("paged_attn", 0):
+        fail(f"mla-serve: {launches} paged MLA and "
+             f"{ops.launches.get('paged_attn', 0)} paged GQA launches in "
+             f"{steps} steps of {n_attn} attention layers")
+    if logits.shape != (MLA_BATCH, cfg.vocab) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"mla-serve: logits {tuple(logits.shape)} not finite")
+    if cache["kv_len"].tolist() != [steps] * MLA_BATCH:
+        fail(f"mla-serve: kv_len {cache['kv_len'].tolist()} after {steps} steps")
+
+    emb = model.embed
+    weight_bytes = (sum(p.numel() * p.element_size() for p in model.parameters())
+                    - (emb.numel() - MLA_BATCH * cfg.d_model) * emb.element_size())
+    mean_len = MLA_PROMPT + (MLA_GEN + 1) / 2
+    latent_bytes = (n_attn * MLA_BATCH * mean_len * pool.shape[-1]
+                    * pool.element_size())
+    bound_ms = (weight_bytes + latent_bytes) / HBM_BYTES_PER_S * 1e3
+    mean_ms = gen_s / MLA_GEN * 1e3
+    med = sorted(step_ms)[len(step_ms) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            logits, cache = serve_step(model, tok, cache, cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+    dev_us, _, top = _device_times(torch, prof)
+    result = {
+        "arch": cfg.name, "layers": cfg.n_layers, "layers_full": full.n_layers,
+        "params": n_params, "batch": MLA_BATCH, "prompt_tokens": MLA_PROMPT,
+        "new_tokens": MLA_GEN, "setup_s": setup_s, "prompt_steps_s": prompt_s,
+        "decode_window_s": gen_s, "decode_step_ms_mean": mean_ms,
+        "decode_step_ms_median": med, "tokens_per_s": MLA_BATCH * MLA_GEN / gen_s,
+        "step_bound_ms": bound_ms, "weight_bytes": weight_bytes,
+        "latent_bytes_mean": latent_bytes, "paged_mla_launches": launches,
+        "steps": steps,
+        "device_busy_share": (None if dev_us is None
+                              else dev_us / 8 / (mean_ms * 1e3)),
+        "device_top_us_8_steps": top,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"mla-serve: {cfg.name} {cfg.n_layers}/{full.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B params bf16, latent pool {tuple(pool.shape)}; "
+        f"{MLA_BATCH} x ({MLA_PROMPT} fed + {MLA_GEN} greedy): decode step "
+        f"{mean_ms:.2f} ms (median {med:.2f}) against a byte bound of "
+        f"{bound_ms:.3f} ms, {result['tokens_per_s']:.1f} tokens/s; {launches} "
+        f"paged MLA launches = {n_attn} x {steps}; device busy "
+        f"{result['device_busy_share']}; peak {result['peak_memory_gb']:.2f} GB; "
+        f"{smi}")
+    log(json.dumps({"mla_serve": result}))
+    del model, cache, logits, prof
+    free_device(torch)
+    result["launches"] = {"paged_mla": launches}
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--managed-ms", type=int, default=1024,
@@ -3351,6 +3605,7 @@ def main() -> int:
     timed = check_kernels(torch, ops, ref, args.seed)
     timed.update(check_paged_attention(torch, ops, ref, args.seed))
     timed.update(check_quantize(torch, ops, ref, args.seed))
+    timed.update(check_paged_mla(torch, ops, ref, args.seed))
     if old_build:
         compare_old_new(torch, ops, load_old_build(*old_build), args.seed)
     else:
@@ -3386,14 +3641,16 @@ def main() -> int:
     elastic_serving(torch, ops, args.seed)
     done("serve-parity, elastic-kv and elastic-serving")
 
-    # 10. expert cache, 11. fleet, 12. bench, 13. train, 14. families:
+    # 10. expert cache, 11. fleet, 12. bench, 13. train, 14. families,
+    # 15. mla-serve:
     # their launches join the main paths'
     for name, run in (
             ("expert-cache", lambda: expert_cache_phase(torch, np, core, ops, args.seed)),
             ("fleet", lambda: fleet_phase(torch, np, ops, args.fleet_node_ms, args.seed)),
             ("bench", lambda: bench_phase(torch, np, ops, args.bench_ms, overhead)),
             ("train", lambda: train_phase(torch, ops, core, args.seed, smi)),
-            ("families", lambda: families_phase(torch, ops, args.seed, smi))):
+            ("families", lambda: families_phase(torch, ops, args.seed, smi)),
+            ("mla-serve", lambda: mla_serve(torch, ops, args.seed, smi))):
         for k, n in run()["launches"].items():
             launches[k] = launches.get(k, 0) + n
         done(name)

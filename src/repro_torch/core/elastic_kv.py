@@ -32,6 +32,7 @@ the current step (double buffering), recorded in EXPERIMENTS.md §Perf.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -51,12 +52,34 @@ class KVGeometry:
     head_dim: int
     block_tokens: int = 16
     dtype_bytes: int = 2        # bf16 on device
+    # a latent pool's values per token and layer (MLA: kv_lora_rank +
+    # qk_rope_head_dim), in place of K and V; 0 for a K/V pool
+    latent_dim: int = 0
+
+    @classmethod
+    def for_config(cls, cfg, dtype_bytes: int = 2) -> "KVGeometry":
+        """The pool of a model configuration: its attention layers and
+        block, and per token and layer K and V of its KV heads, or with
+        ``cfg.mla`` the latent row."""
+        from ..models.model import attn_layer_count
+        return cls(n_layers=attn_layer_count(cfg), kv_heads=cfg.n_kv_heads,
+                   head_dim=cfg.head_dim_, block_tokens=cfg.kv_block_tokens,
+                   dtype_bytes=dtype_bytes,
+                   latent_dim=0 if cfg.mla is None else cfg.mla.latent_dim)
+
+    @property
+    def token_shape(self) -> tuple:
+        """One token's entry: ``(n_layers, latent_dim)`` for a latent
+        pool, else ``(n_layers, 2, kv_heads, head_dim)``."""
+        if self.latent_dim:
+            return (self.n_layers, self.latent_dim)
+        return (self.n_layers, 2, self.kv_heads, self.head_dim)
 
     @property
     def block_bytes(self) -> int:
-        # K and V for all layers of one block of tokens
-        return (self.block_tokens * self.n_layers * 2 * self.kv_heads
-                * self.head_dim * self.dtype_bytes)
+        # every layer's entry for one block of tokens
+        return (self.block_tokens * math.prod(self.token_shape)
+                * self.dtype_bytes)
 
     @property
     def tokens_per_block(self) -> int:
@@ -144,9 +167,9 @@ class ElasticKVCache:
 
     # --------------------------------------------------------------- writes
     def append_kv(self, seq_id: int, kv_token: np.ndarray) -> None:
-        """Append one token's KV (shape: [n_layers, 2, kv_heads, head_dim])."""
+        """Append one token's KV (shape: ``geom.token_shape``)."""
         g = self.geom
-        expect = (g.n_layers, 2, g.kv_heads, g.head_dim)
+        expect = g.token_shape
         if kv_token.shape != expect:
             raise ValueError(f"kv shape {kv_token.shape} != {expect}")
         raw = kv_token.astype(np.float16 if g.dtype_bytes == 2 else np.float32)
@@ -167,18 +190,18 @@ class ElasticKVCache:
     def _block_dtype_shape(self):
         g = self.geom
         dt = np.float16 if g.dtype_bytes == 2 else np.float32
-        return dt, (g.block_tokens, g.n_layers, 2, g.kv_heads, g.head_dim)
+        return dt, (g.block_tokens, *g.token_shape)
 
     def read_block(self, seq_id: int, block_idx: int) -> np.ndarray:
-        """Read one block back as [block_tokens, n_layers, 2, kv_heads, head_dim]."""
+        """Read one block back as ``[block_tokens, *geom.token_shape]``."""
         return self.read_blocks(seq_id, [block_idx])[0]
 
     def read_blocks(self, seq_id: int,
                     block_idxs: Optional[Sequence[int]] = None) -> np.ndarray:
         """Read several blocks of one sequence in a single batched gather
         (default: all of them): one residency probe, one observer
-        dispatch, one ``[n_blocks, block_tokens, n_layers, 2, kv_heads,
-        head_dim]`` result.  This is the attention hot path -- per-block
+        dispatch, one ``[n_blocks, block_tokens, *geom.token_shape]``
+        result.  This is the attention hot path -- per-block
         ``view().load()`` paid the full translate/bounds/observer stack
         per block."""
         with self._lock:

@@ -30,7 +30,6 @@ from ..core import EngineModule, EngineModuleV2, EntryOps, hot_upgrade, install_
 from ..core.config import LRUConfig, SchedulerConfig
 from ..core.elastic_kv import ElasticKVCache, KVGeometry, make_kv_taiji_config
 from ..core.system import TaijiSystem
-from ..models import model as M
 
 
 def run(cfg, *, phys_blocks: int, device=None, turns: int = 40,
@@ -45,9 +44,7 @@ def run(cfg, *, phys_blocks: int, device=None, turns: int = 40,
     trace's ops (``captured_ops``)."""
     n_seqs, batch = 24, 4
     prompt, gen = 24, 8
-    geom = KVGeometry(n_layers=M.attn_layer_count(cfg),
-                      kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                      block_tokens=cfg.kv_block_tokens)
+    geom = KVGeometry.for_config(cfg)
     worst = n_seqs * (-(-(prompt + turns * gen) // geom.block_tokens))
     tcfg = make_kv_taiji_config(
         geom, phys_blocks, overcommit=worst / phys_blocks,
@@ -66,7 +63,7 @@ def run(cfg, *, phys_blocks: int, device=None, turns: int = 40,
         entry = EntryOps()
         install_module(system, entry, EngineModule(system))
 
-        kv_shape = (geom.n_layers, 2, geom.kv_heads, geom.head_dim)
+        kv_shape = geom.token_shape
         rng = np.random.default_rng(seed)
         for sid in range(n_seqs):
             cache.create_sequence(sid)

@@ -19,6 +19,8 @@ and the wrappers that pick between them.
   fletcher_rows  -- extent-row tags (repro/kernels/crc32c.py:fletcher_checksum)
   paged_decode_attention -- decode attention through the block table
                  (repro/kernels/paged_attention.py:paged_decode_attention)
+  paged_mla_decode -- latent (MLA) decode attention through the block
+                 table (no Pallas kernel: the reference has no MLA)
   block_quantize / block_dequantize -- per-MP int8 (de)quantization
                  (repro/kernels/compress.py, on no path of either package)
 """

@@ -1,5 +1,6 @@
 """Build and load the port's kernel library from every source in ``SOURCES``
-(``csrc/swap_kernels.cu``, ``csrc/paged_attention.cu``, ``csrc/quantize.cu``).
+(``csrc/swap_kernels.cu``, ``csrc/paged_attention.cu``, ``csrc/quantize.cu``,
+``csrc/paged_mla.cu``).
 
 On first use each source is compiled with ``nvcc`` for ``sm_90a`` into an
 object file -- one ``nvcc`` per source, all started together -- and the
@@ -29,7 +30,8 @@ from ..analysis.lock_order import named_lock
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "swap_kernels.cu",
            _PKG / "csrc" / "paged_attention.cu",
-           _PKG / "csrc" / "quantize.cu")
+           _PKG / "csrc" / "quantize.cu",
+           _PKG / "csrc" / "paged_mla.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -52,6 +54,10 @@ _SIGNATURES = {
     "paged_attn_decode": (_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64,
                           _I64, _I64, _I64, _I64, _I64, _I32, _I32,
                           ctypes.c_float, _VP),
+    # q, pool, block_table, kv_len, out, workspace, B, H, W, R, bt, mbs,
+    # n_blocks, n_split, dtype, scale, stream
+    "paged_mla_decode": (_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
+                         _I64, _I64, _I64, _I64, _I32, ctypes.c_float, _VP),
     # x, q, scales, n_mps, mp, dtype, stream
     "quant_block_quantize": (_VP, _VP, _VP, _I64, _I64, _I32, _VP),
     # q, scales, out, n_mps, mp, dtype, stream

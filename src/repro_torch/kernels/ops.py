@@ -1,22 +1,24 @@
 """Wrappers of the port's kernels: the swap data-path kernels (the
 indexed pass, the verified scatter, Fletcher tags), paged decode
-attention and the int8 block quantize/dequantize pair.
+attention, paged latent (MLA) decode attention and the int8 block
+quantize/dequantize pair.
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches
 on where its tensors live:
 
 * on a CUDA device it launches the hand-written Hopper kernel from
-  ``csrc/swap_kernels.cu``, ``csrc/paged_attention.cu`` or
-  ``csrc/quantize.cu`` on the current stream and bumps
+  ``csrc/swap_kernels.cu``, ``csrc/paged_attention.cu``,
+  ``csrc/paged_mla.cu`` or ``csrc/quantize.cu`` on the current stream
+  and bumps
   ``launches[name]`` -- there is no fallback: a kernel that does not
   build or launch raises;
 * on the CPU it runs the plain version in :mod:`.ref`, and counts
   nothing;
-* paged attention, the one wrapper the model's step reaches, also takes
-  meta tensors: it returns an empty output of q's shape and dtype,
-  nothing executes, and it reports the kernel's own FLOPs and bytes to
-  :data:`meta_cost_sinks` (the dry run, ``launch/dryrun.py``). This is
-  shape inference, not a fallback; every other device raises.
+* the two paged attentions, the wrappers the model's step reaches, also
+  take meta tensors: each returns an empty output of its shape and
+  dtype, nothing executes, and it reports the kernel's own FLOPs and
+  bytes to :data:`meta_cost_sinks` (the dry run, ``launch/dryrun.py``).
+  This is shape inference, not a fallback; every other device raises.
 
 Index vectors of the swap kernels come from the host bitmaps (numpy);
 the wrappers check them against the pool on the host, and both the
@@ -42,8 +44,9 @@ from . import _build, ref
 # only where a kernel is launched. hv_sched threads launch too, so every
 # bump and reset holds the lock (a bare += can lose an increment). The
 # verified scatter's ("scatter_verified": the swap-in's write; "scatter"
-# counts its plain mode), paged attention's ("paged_attn") and quantize's
-# ("quantize", "dequantize") entries appear with their first launch
+# counts its plain mode), paged attention's ("paged_attn"), latent
+# attention's ("paged_mla") and quantize's ("quantize", "dequantize")
+# entries appear with their first launch
 launches: Dict[str, int] = {"gather": 0, "scatter": 0, "zero": 0,
                             "fletcher": 0}
 # launches recorded into CUDA graphs, counted apart: a launch made while
@@ -475,7 +478,8 @@ def attn_splits(mbs: int, bt: int) -> int:
 
 
 def _check_table_host(block_table: torch.Tensor, kv_len: torch.Tensor,
-                      n_blocks: int, bt: int) -> None:
+                      n_blocks: int, bt: int,
+                      name: str = "paged_decode_attention") -> None:
     """The entries a sequence reads (context blocks below
     ``ceil(kv_len / bt)``) must name a pool block; CPU tensors only."""
     mbs = block_table.shape[1]
@@ -484,7 +488,7 @@ def _check_table_host(block_table: torch.Tensor, kv_len: torch.Tensor,
     if bool(bad.any()):
         b, j = (int(x) for x in bad.nonzero()[0])
         raise IndexError(
-            f"paged_decode_attention: block_table[{b}, {j}] = "
+            f"{name}: block_table[{b}, {j}] = "
             f"{int(block_table[b, j])} is outside the pool's {n_blocks} blocks")
 
 
@@ -581,6 +585,113 @@ def launch_paged_attn(q: torch.Tensor, kv_pool: torch.Tensor,
     _count("paged_attn")
 
 
+# ----------------------------------------------------- paged latent attention
+# the one shape csrc/paged_mla.cu takes, DeepSeek-V2's: 16 query heads, a
+# 576-wide latent row whose first 512 values are also the value; its
+# dtypes (q and pool alike); and the positions of one split, as kSpan in
+# the source
+MLA_SHAPE = (16, 576, 512)
+MLA_DTYPES = frozenset({torch.bfloat16, torch.float32})
+_MLA_SPAN = 256
+
+
+def mla_splits(mbs: int, bt: int) -> int:
+    """Splits per sequence that cover a table of ``mbs`` blocks of ``bt``
+    tokens; sizes the grid and the workspace."""
+    return -(-mbs * bt // _MLA_SPAN)
+
+
+def paged_mla_decode(q: torch.Tensor, latent_pool: torch.Tensor,
+                     block_table: torch.Tensor, kv_len: torch.Tensor,
+                     kv_rank: int, scale: float) -> torch.Tensor:
+    """Latent (MLA) decode attention through a block table, absorbed form.
+
+    q: (B, H, W), each head ``[q_lat | q_pe]``; latent_pool: (n_blocks,
+    bt, W), each token's ``[c | k_pe]``; block_table: (B, mbs) int32;
+    kv_len: (B,) int32 -> (B, H, kv_rank) in q's dtype: per head
+    ``softmax(q . rows * scale) @ rows[:, :kv_rank]`` over the positions
+    below ``kv_len[b]`` (zeros where it is 0). On CUDA tensors q and the
+    pool are both bfloat16 or both float32, and (H, W, kv_rank) must be
+    :data:`MLA_SHAPE`.
+    """
+    name = "paged_mla_decode"
+    if q.dim() != 3 or latent_pool.dim() != 3 or latent_pool.shape[2] != q.shape[2] \
+            or not 0 < kv_rank <= q.shape[2]:
+        raise ValueError(f"{name}: expects q (B, H, W), pool (n_blocks, bt, W) "
+                         f"and 0 < kv_rank <= W, got {tuple(q.shape)}, "
+                         f"{tuple(latent_pool.shape)} and {kv_rank}")
+    B, H, W = q.shape
+    n_blocks, bt, _ = latent_pool.shape
+    if block_table.dim() != 2 or block_table.shape[0] != B \
+            or tuple(kv_len.shape) != (B,):
+        raise ValueError(f"{name}: block_table {tuple(block_table.shape)} and "
+                         f"kv_len {tuple(kv_len.shape)} do not fit batch {B}")
+    if block_table.dtype != torch.int32 or kv_len.dtype != torch.int32:
+        raise TypeError(f"{name}: block_table and kv_len must be int32, got "
+                        f"{block_table.dtype} and {kv_len.dtype}")
+    for t in (q, latent_pool, block_table, kv_len):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    out_shape = (B, H, kv_rank)
+    if all(t.device.type == "meta" for t in (q, latent_pool, block_table, kv_len)):
+        # shapes only (the dry run): every table entry used
+        flops, nbytes = paged_mla_cost(q, latent_pool, block_table,
+                                       block_table.shape[1] * bt, kv_rank)
+        for sink in meta_cost_sinks:
+            sink("paged_mla_kernel", flops, nbytes)
+        return q.new_empty(out_shape)
+    if not _on_cuda(name, q, latent_pool, block_table, kv_len):
+        _check_table_host(block_table, kv_len, n_blocks, bt, name)
+        return ref.paged_mla_decode(q, latent_pool, block_table, kv_len,
+                                    kv_rank, scale)
+    if q.dtype != latent_pool.dtype or q.dtype not in MLA_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes q and pool both bfloat16 "
+                        f"or both float32, got {q.dtype} and {latent_pool.dtype}")
+    if (H, W, kv_rank) != MLA_SHAPE:
+        raise ValueError(f"{name}: the CUDA kernel takes (heads, width, rank) "
+                         f"{MLA_SHAPE}, got {(H, W, kv_rank)}")
+    out = q.new_empty(out_shape)
+    launch_paged_mla(q, latent_pool, block_table, kv_len, out, scale)
+    return out
+
+
+def paged_mla_cost(q: torch.Tensor, latent_pool: torch.Tensor,
+                   block_table: torch.Tensor, kv_rows: int,
+                   kv_rank: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one paged MLA launch whose sequences each read
+    ``kv_rows`` positions: those latent rows, q, the table and ``kv_len``
+    read once and the output written once; per row and head 2 FLOPs per
+    multiply-add of the score (W wide) and of the value (kv_rank wide)."""
+    B, H, W = q.shape
+    rows = B * kv_rows
+    io_bytes = ((q.numel() + B * H * kv_rank) * q.element_size()
+                + block_table.numel() * block_table.element_size() + B * 4)
+    return 2 * rows * H * (W + kv_rank), rows * W * latent_pool.element_size() + io_bytes
+
+
+def launch_paged_mla(q: torch.Tensor, latent_pool: torch.Tensor,
+                     block_table: torch.Tensor, kv_len: torch.Tensor,
+                     out: torch.Tensor, scale: float) -> None:
+    """One paged MLA call on already-checked device operands: a split
+    kernel whose splits leave their partials in an f32 workspace of
+    ``B * n_split * H * (kv_rank + 2)`` elements, then a merge kernel."""
+    lib = _build.load()
+    B, H, W = q.shape
+    R = out.shape[2]
+    n_blocks, bt, _ = latent_pool.shape
+    mbs = block_table.shape[1]
+    n_split = mla_splits(mbs, bt)
+    ws = torch.empty(B * n_split * H * (R + 2), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.paged_mla_decode(
+            q.data_ptr(), latent_pool.data_ptr(), block_table.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, W, R, bt,
+            mbs, n_blocks, n_split, _DTYPE_CODES[q.dtype], scale, _stream(q))
+    if rc:
+        _check_rc(lib, rc, f"paged_mla_decode (B {B}, table {mbs} x {bt})")
+    _count("paged_mla")
+
+
 # ------------------------------------------------------- int8 quantization
 
 
@@ -674,5 +785,7 @@ __all__ = ["launches", "transfers", "reset_launches", "copy_to_host",
            "launch_scatter_verified", "scatter_staged_rows_",
            "launch_zero", "launch_fletcher", "paged_decode_attention",
            "launch_paged_attn", "ATTN_DTYPE_PAIRS", "attn_splits",
+           "paged_mla_decode", "launch_paged_mla", "paged_mla_cost",
+           "MLA_SHAPE", "MLA_DTYPES", "mla_splits",
            "block_quantize", "launch_quantize", "block_dequantize",
            "launch_dequantize"]

@@ -5,9 +5,11 @@ They are what :mod:`.ops` runs for tensors on the CPU, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card. The swap
 functions are exact (bytes and integers), so their kernels must match
 them bit for bit; paged attention is floating point and is held within
-the tolerances of ``tests/test_kernels.py``. The int8 block quantizer is
-exact too: its absmax is order-free, and every other step is one IEEE
-operation, so its kernel must match it bit for bit as well.
+the tolerances of ``tests/test_kernels.py`` (latent attention, which no
+Pallas kernel has, within those of ``tests/test_torch_mla.py``). The int8
+block quantizer is exact too: its absmax is order-free, and every other
+step is one IEEE operation, so its kernel must match it bit for bit as
+well.
 """
 from __future__ import annotations
 
@@ -163,3 +165,35 @@ def paged_decode_attention(q: torch.Tensor, kv_pool: torch.Tensor,
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     o = torch.where(kv_len[:, None, None, None] > 0, o, torch.zeros_like(o))
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_mla_decode(q: torch.Tensor, latent_pool: torch.Tensor,
+                     block_table: torch.Tensor, kv_len: torch.Tensor,
+                     kv_rank: int, scale: float) -> torch.Tensor:
+    """Latent (MLA) decode attention through a block table, absorbed form.
+
+    q: (B, H, W), each head's ``[q_lat | q_pe]``; latent_pool: (n_blocks,
+    bt, W), each token's ``[c | k_pe]``; block_table: (B, mbs) int;
+    kv_len: (B,) int. The score of a position is ``q . row * scale``
+    (every head against the one shared row), the softmax is over the
+    positions below ``kv_len[b]``, and the output (B, H, kv_rank) in q's
+    dtype is ``sum p c``: the first ``kv_rank`` values of a row are also
+    its value. In f32; ``kv_len == 0`` gives zeros. It replaces no Pallas
+    kernel: the reference has no latent attention.
+    """
+    B, H, W = q.shape
+    _, bt, _ = latent_pool.shape
+    mbs = block_table.shape[1]
+    kv_len = kv_len.to(torch.int64)
+    used = (torch.arange(mbs, device=q.device)[None, :] * bt) < kv_len[:, None]
+    table = torch.where(used, block_table.to(torch.int64),
+                        torch.zeros_like(block_table, dtype=torch.int64))
+    rows = latent_pool[table].reshape(B, mbs * bt, W).float()
+    s = torch.einsum("bhw,bsw->bhs", q.float(), rows) * scale
+    pos = torch.arange(mbs * bt, device=q.device)
+    s = torch.where(pos[None, None, :] < kv_len[:, None, None], s,
+                    torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhs,bsr->bhr", p, rows[..., :kv_rank])
+    o = torch.where(kv_len[:, None, None] > 0, o, torch.zeros_like(o))
+    return o.to(q.dtype)

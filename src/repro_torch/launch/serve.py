@@ -24,7 +24,6 @@ from ..configs.reduce import reduced_config
 from ..core.config import LRUConfig, SchedulerConfig
 from ..core.elastic_kv import ElasticKVCache, KVGeometry, make_kv_taiji_config
 from ..core.system import TaijiSystem
-from ..models import model as M
 
 
 def run_serving(cfg, *, n_seqs: int, phys_blocks: int, turns: int,
@@ -39,9 +38,7 @@ def run_serving(cfg, *, n_seqs: int, phys_blocks: int, turns: int,
     turn, reads every sequence back through the cache and raises
     ``RuntimeError`` where a block differs from it; then
     ``stats["verified_blocks"]`` counts the blocks read."""
-    geom = KVGeometry(n_layers=M.attn_layer_count(cfg),
-                      kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                      block_tokens=cfg.kv_block_tokens, dtype_bytes=2)
+    geom = KVGeometry.for_config(cfg)
     # virtual space sized for the demo's worst case (every sequence grows
     # to prompt + turns*gen tokens); physical stays at phys_blocks -- the
     # gap is Taiji's elastic memory
@@ -56,7 +53,7 @@ def run_serving(cfg, *, n_seqs: int, phys_blocks: int, turns: int,
     try:
         system.start_background()
         cache = ElasticKVCache(geom, system)
-        kv_shape = (geom.n_layers, 2, geom.kv_heads, geom.head_dim)
+        kv_shape = geom.token_shape
         mirror: Dict[int, List[np.ndarray]] = {}
 
         def append(sid: int, kv: np.ndarray) -> None:

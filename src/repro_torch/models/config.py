@@ -4,11 +4,20 @@ One dataclass covers all ten assigned architectures; family-specific
 features (GQA geometry, qk-norm, QKV bias, MoE, Mamba, M-RoPE, encoder vs
 decoder) are flags/sub-configs. Exact per-arch values live in
 ``src/repro/configs/<id>.py``.
+
+The port's own settings beyond the reference's schema -- latent
+attention (:class:`MLAConfig`), YaRN rope scaling (:class:`YaRNConfig`)
+and raw top-k gates (``norm_topk_prob``) -- are fields of the subclasses
+:class:`PortArchConfig` and :class:`PortMoEConfig` only. On the base
+classes they are class attributes at their "off" values, so every config
+built from the base classes has the reference's fields, field for field
+(``dataclasses.asdict`` of a port config equals the reference's).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import math
+from typing import ClassVar, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +36,66 @@ class MoEConfig:
     # dispatch collectives reduce to the expert-parallel all-to-all
     grouped_dispatch: bool = False
     min_group_tokens: int = 256   # fall back to global sort below this
+    # renormalise the top-k gates to sum to 1 (the reference always does);
+    # a field of PortMoEConfig only
+    norm_topk_prob: ClassVar[bool] = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PortMoEConfig(MoEConfig):
+    """A MoE config with the port's ``norm_topk_prob``: False keeps the
+    top-k softmax probabilities as the gates, unrenormalised
+    (DeepSeek-V2's ``norm_topk_prob: false``)."""
+    norm_topk_prob: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2): keys and values come
+    from one ``kv_lora_rank``-wide latent per token (normed), and one
+    ``qk_rope_head_dim``-wide rotary key shared by every head. A query
+    head is ``qk_nope_head_dim + qk_rope_head_dim`` wide, a value head
+    ``v_head_dim``. ``q_lora_rank`` None: the query is one projection
+    (the only form the port has)."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    q_lora_rank: Optional[int] = None
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a token keeps per layer in the latent pool: the normed
+        latent, then the rotated rope key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention-temperature factor ``0.1 m ln s + 1`` (1 for
+    ``s <= 1``), as hf ``modeling_deepseek.yarn_get_mscale``."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN rope scaling (hf ``rope_scaling`` of type ``yarn``)."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    @property
+    def cos_sin_scale(self) -> float:
+        """The factor on cos and sin: ``mscale(f, mscale) /
+        mscale(f, mscale_all_dim)``."""
+        return (yarn_mscale(self.factor, self.mscale)
+                / yarn_mscale(self.factor, self.mscale_all_dim))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +150,9 @@ class ArchConfig:
     # block-table gather is batch-aligned and shard-local -- the per-host
     # pool layout used on TPU serving; see EXPERIMENTS.md §Perf cell A)
     kv_pool_layout: str = "global"
+    # fields of PortArchConfig only
+    mla: ClassVar[Optional[MLAConfig]] = None
+    rope_scaling: ClassVar[Optional[YaRNConfig]] = None
 
     # ------------------------------------------------------------- derived
     @property
@@ -121,6 +193,27 @@ class ArchConfig:
         if self.n_heads:
             assert self.n_kv_heads > 0
             assert self.n_heads % self.n_kv_heads == 0
+        if self.mla is not None:
+            assert self.mla.q_lora_rank is None, "MLA with a query LoRA"
+            assert self.family in ("dense", "moe") and self.kv_pool_layout == "global"
+            assert self.mla.qk_rope_head_dim % 2 == 0
+
+    @property
+    def rope_dim(self) -> int:
+        """Width the rotary embedding turns: the rope key of MLA, else a
+        whole head."""
+        return self.mla.qk_rope_head_dim if self.mla is not None else self.head_dim_
+
+    def softmax_scale(self) -> float:
+        """Attention's score scale: ``1/sqrt(query head width)``, times
+        YaRN's ``mscale(factor, mscale_all_dim)`` squared where the config
+        has it (hf DeepseekV2Attention)."""
+        width = self.mla.qk_head_dim if self.mla is not None else self.head_dim_
+        scale = width ** -0.5
+        y = self.rope_scaling
+        if y is not None and y.mscale_all_dim:
+            scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+        return scale
 
     # parameter count (for 6ND model-FLOPs in the roofline)
     def param_count(self) -> int:
@@ -131,7 +224,13 @@ class ArchConfig:
             n += D * V                         # lm head
         for l in range(self.n_layers):
             n += 2 * D                         # norms
-            if self.is_attn_layer(l) and self.n_heads:
+            if self.is_attn_layer(l) and self.mla is not None:
+                a, H = self.mla, self.n_heads
+                n += D * H * a.qk_head_dim                  # wq
+                n += D * a.latent_dim + a.kv_lora_rank      # wkv_a, kv_norm
+                n += a.kv_lora_rank * H * (a.qk_nope_head_dim + a.v_head_dim)
+                n += H * a.v_head_dim * D                   # wo
+            elif self.is_attn_layer(l) and self.n_heads:
                 q = D * self.n_heads * hd
                 kv = 2 * D * self.n_kv_heads * hd
                 o = self.n_heads * hd * D
@@ -169,3 +268,17 @@ class ArchConfig:
         n_moe_layers = sum(self.is_moe_layer(l) for l in range(self.n_layers))
         inactive = n_moe_layers * (m.n_routed - m.top_k) * 3 * self.d_model * m.d_ff_expert
         return total - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An :class:`ArchConfig` with the port's own settings: ``mla``
+    (latent attention in every attention layer, over a latent paged
+    pool) and ``rope_scaling`` (YaRN). Its :meth:`param_count` is the
+    published count, every parameter the model holds: the reference's
+    leaves out ``final_norm``."""
+    mla: Optional[MLAConfig] = None
+    rope_scaling: Optional[YaRNConfig] = None
+
+    def param_count(self) -> int:
+        return super().param_count() + self.d_model

@@ -1,4 +1,4 @@
-"""Core transformer layers: RMSNorm, RoPE / M-RoPE, GQA attention with
+"""Core transformer layers: RMSNorm, RoPE / M-RoPE / YaRN, GQA attention with
 chunked (flash-semantics) computation and its backward, single-token
 decode attention, SwiGLU MLP.
 
@@ -22,6 +22,8 @@ left out.
 from __future__ import annotations
 
 from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +49,51 @@ def rope_angles(positions: torch.Tensor, dim: int,
     freqs = 1.0 / (theta ** (ar / half))
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def yarn_inv_freq(dim: int, theta: float, y, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (hf ``DeepseekV2YarnRotaryEmbedding``),
+    (dim//2,) f32: ``1/theta^(2i/dim)`` below the correction range, the
+    same over ``factor`` above it, and a linear ramp between. The range
+    is where a pair turns ``beta_fast`` .. ``beta_slow`` times over the
+    original context: ``dim ln(L / (2 pi b)) / (2 ln theta)``, floored /
+    ceiled and clipped to [0, dim - 1]."""
+    def corr(rot: float) -> float:
+        return (dim * math.log(y.original_max_position_embeddings
+                               / (rot * 2 * math.pi))) / (2 * math.log(theta))
+    lo = max(math.floor(corr(y.beta_fast)), 0)
+    hi = min(math.ceil(corr(y.beta_slow)), dim - 1)
+    if lo == hi:
+        hi += 0.001
+    ar = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+    extra = 1.0 / (theta ** (ar / dim))
+    inter = 1.0 / (y.factor * theta ** (ar / dim))
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32, device=device)
+                        - lo) / (hi - lo), 0, 1)
+    keep = 1.0 - ramp                   # 1: the unscaled frequency
+    return inter * (1 - keep) + extra * keep
+
+
+def rope_cos_sin(cfg, positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin (..., S, rope_dim//2) at ``positions`` (..., S) for a
+    config's rotary width: YaRN's frequencies and cos/sin scale where
+    the config has ``rope_scaling``, else :func:`rope_angles`."""
+    y = cfg.rope_scaling
+    if y is None:
+        return rope_angles(positions, cfg.rope_dim, cfg.rope_theta)
+    inv = yarn_inv_freq(cfg.rope_dim, cfg.rope_theta, y, positions.device)
+    ang = positions.float()[..., None] * inv
+    k = y.cos_sin_scale
+    return torch.cos(ang) * k, torch.sin(ang) * k
+
+
+def deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """DeepSeek's rope convention: the pairs (2i, 2i+1) of the last axis
+    go to halves i and d/2 + i, then :func:`apply_rope` turns them
+    rotate-half style (hf ``modeling_deepseek.apply_rotary_pos_emb``)."""
+    d = x.shape[-1]
+    return x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -302,3 +349,39 @@ def attention_block(x: torch.Tensor, p: Mapping[str, torch.Tensor], cfg,
     o = chunked_attention(q, k, v, causal=causal,
                           chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
     return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
+
+
+def mla_attention_block(x: torch.Tensor, p: Mapping[str, torch.Tensor], cfg,
+                        cos: torch.Tensor, sin: torch.Tensor,
+                        *, causal: bool) -> torch.Tensor:
+    """Latent attention (MLA) sub-layer in its published form, hf
+    ``DeepseekV2Attention`` with no query LoRA: ``q = x wq`` split into
+    ``q_nope``, ``q_pe``; ``[c, k_pe] = x wkv_a``, ``c`` RMS-normed by
+    ``kv_norm``; ``[k_nope, v] = c wkv_b`` per head; the rope (cos/sin
+    of :func:`rope_cos_sin`) on ``q_pe`` and on the one ``k_pe`` every
+    head shares, each de-interleaved first; causal attention of ``[q_nope,
+    q_pe]`` against ``[k_nope, k_pe]`` at ``cfg.softmax_scale()``, then
+    ``wo``. The chunked path takes one width for q, k and v, so the
+    narrower of them is padded with zeros (which changes no score and
+    no output column that is kept)."""
+    B, S, _ = x.shape
+    a, H = cfg.mla, cfg.n_heads
+    nope, rope, dv, R = (a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim,
+                         a.kv_lora_rank)
+    q_nope, q_pe = (x @ p["wq"]).reshape(B, S, H, nope + rope).split([nope, rope], -1)
+    c, k_pe = (x @ p["wkv_a"]).split([R, rope], -1)
+    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    k_nope, v = (c @ p["wkv_b"]).reshape(B, S, H, nope + dv).split([nope, dv], -1)
+    q_pe = apply_rope(deinterleave(q_pe), cos, sin)
+    k_pe = apply_rope(deinterleave(k_pe)[:, :, None, :], cos, sin)
+    q = torch.cat([q_nope, q_pe], -1)
+    k = torch.cat([k_nope, k_pe.expand(B, S, H, rope)], -1)
+    width = max(nope + rope, dv)
+
+    def pad(t: torch.Tensor) -> torch.Tensor:
+        return F.pad(t, (0, width - t.shape[-1]))
+
+    o = chunked_attention(pad(q), pad(k), pad(v), causal=causal,
+                          chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+                          scale=cfg.softmax_scale())
+    return o[..., :dv].reshape(B, S, H * dv) @ p["wo"]

@@ -24,6 +24,13 @@ the hand-written paged-attention kernel (``kernels.ops``); on CPU
 tensors the same call runs the kernel's plain version. The SSM and
 hybrid families carry each mamba layer's conv window and SSM state in
 the cache, and ``decode_step`` writes their new values in place too.
+
+A latent-attention (MLA) config keeps instead one latent pool
+``(layers, n_blocks, block_tokens, kv_lora_rank + qk_rope_head_dim)``:
+per token and layer the normed latent and the rotated rope key, which
+every head shares. ``decode_step`` runs MLA in its absorbed form over
+it (:func:`decode_body`), ``forward`` in its published form
+(``layers.mla_attention_block``).
 """
 from __future__ import annotations
 
@@ -38,10 +45,11 @@ from torch.utils.checkpoint import checkpoint
 from ..core.virt import resolve_device
 from ..kernels import ops
 from ..obs.tracer import (DECODE_CAPTURE, DECODE_EAGER, DECODE_REPLAY,
-                          ST_DECODE_STEP)
+                          ST_DECODE_STEP, ST_MLA_ATTN, ST_MOE_FFN)
 from .config import ArchConfig
-from .layers import (apply_rope, attention_block, mrope_cos_sin, rms_norm,
-                     rope_angles, swiglu)
+from .layers import (apply_rope, attention_block, deinterleave,
+                     mla_attention_block, mrope_cos_sin, rms_norm,
+                     rope_angles, rope_cos_sin, swiglu)
 from .moe import moe_ffn
 from .ssm import mamba_block, mamba_decode_step
 
@@ -77,6 +85,23 @@ class Attention(nn.Module):
             self.bq, self.bk, self.bv = mk(H * hd), mk(KV * hd), mk(KV * hd)
         if cfg.qk_norm:
             self.q_norm, self.k_norm = mk(hd), mk(hd)
+
+
+class MLAAttention(nn.Module):
+    """Latent attention (``cfg.mla``): ``wq`` (D, H*(nope+rope)),
+    ``wkv_a`` (D, R+rope), ``kv_norm`` (R,), ``wkv_b`` (R, H*(nope+v)),
+    per head ``[k_nope | v]``, and ``wo`` (H*v, D); R is
+    ``kv_lora_rank``."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device) -> None:
+        super().__init__()
+        a, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+        mk = lambda *s: _param(*s, dtype=dtype, device=device)  # noqa: E731
+        self.wq = mk(D, H * a.qk_head_dim)
+        self.wkv_a = mk(D, a.latent_dim)
+        self.kv_norm = mk(a.kv_lora_rank)
+        self.wkv_b = mk(a.kv_lora_rank, H * (a.qk_nope_head_dim + a.v_head_dim))
+        self.wo = mk(H * a.v_head_dim, D)
 
 
 class MLP(nn.Module):
@@ -134,7 +159,8 @@ class DecoderLayer(nn.Module):
         super().__init__()
         self.ln1 = _param(cfg.d_model, dtype=dtype, device=device)
         self.ln2 = _param(cfg.d_model, dtype=dtype, device=device)
-        self.attn = Attention(cfg, dtype, device)
+        self.attn = (MLAAttention if cfg.mla is not None else Attention)(
+            cfg, dtype, device)
         if moe:
             self.moe = MoE(cfg, dtype, device)
         else:
@@ -236,7 +262,7 @@ def init_params(cfg: ArchConfig, *, seed: Optional[int] = None,
     std, std_out = 0.02, 0.02 / math.sqrt(2 * cfg.n_layers)
     out_proj = ("wo", "w_down", "shared_down", "out_proj")
     ones = ("ln1", "ln2", "ln_mix", "ln_ffn", "final_norm", "q_norm",
-            "k_norm", "D")
+            "k_norm", "kv_norm", "D")
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -287,7 +313,8 @@ def _layer_body(x: torch.Tensor, aux: torch.Tensor, layer: DecoderLayer,
     compute dtype inside (recomputed under remat, as the reference)."""
     lp = _cast(layer, DTYPES[cfg.compute_dtype])
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    h = attention_block(h, lp["attn"], cfg, cos, sin, causal=cfg.causal)
+    attend = mla_attention_block if cfg.mla is not None else attention_block
+    h = attend(h, lp["attn"], cfg, cos, sin, causal=cfg.causal)
     x = x + h
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
@@ -354,10 +381,13 @@ def _embed_inputs(model: Model, cfg: ArchConfig, batch: Batch) -> torch.Tensor:
 
 def _positions_cos_sin(cfg: ArchConfig, batch: Batch, S: int, device):
     """Rotary angles: M-RoPE from ``batch["mrope_pos"]`` (3, B, S) where
-    the config has sections, else RoPE at positions 0..S-1."""
+    the config has sections, else RoPE at positions 0..S-1 (over MLA's
+    rope width, with YaRN where the config has it)."""
     if cfg.mrope_sections is not None:
         return mrope_cos_sin(batch["mrope_pos"], cfg.head_dim_,
                              cfg.rope_theta, cfg.mrope_sections)
+    if cfg.mla is not None:
+        return rope_cos_sin(cfg, torch.arange(S, device=device))
     return rope_angles(torch.arange(S, device=device), cfg.head_dim_,
                        cfg.rope_theta)
 
@@ -444,13 +474,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     factored ``(B, mbs, ...)`` with a table that indexes within a
     sequence's own partition; for the mamba layers ``conv_state`` (Lm,
     B, d_conv-1, DI) and ``ssm_state`` (Lm, B, DI, DS) in f32. The SSM
-    family has no pool."""
+    family has no pool. An MLA config has ``latent_pool`` (La, n_blocks,
+    bt, kv_lora_rank + qk_rope_head_dim) in the global layout instead of
+    ``kv_pool``, with the same block table."""
     device = resolve_device(device)
     spec = CacheSpec(batch, max_seq, attn_layer_count(cfg),
                      mamba_layer_count(cfg))
     i32 = dict(dtype=torch.int32, device=device)
     cache = {"kv_len": torch.zeros((batch,), **i32)}
-    if spec.n_attn_layers:
+    if cfg.mla is not None:
+        mbs = spec.max_blocks_per_seq(cfg)
+        cache["latent_pool"] = torch.zeros(
+            (spec.n_attn_layers, spec.n_blocks(cfg), cfg.kv_block_tokens,
+             cfg.mla.latent_dim), dtype=dtype, device=device)
+        cache["block_table"] = (torch.arange(batch, **i32)[:, None] * mbs
+                                + torch.arange(mbs, **i32)[None, :])
+    elif spec.n_attn_layers:
         bt = cfg.kv_block_tokens
         nb, mbs = spec.n_blocks(cfg), spec.max_blocks_per_seq(cfg)
         row = (spec.n_attn_layers, bt, 2, cfg.n_kv_heads, cfg.head_dim_)
@@ -474,19 +513,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def _paged_kv_write(pool_l: torch.Tensor, block_table: torch.Tensor,
-                    pos: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bt: int) -> None:
+                    pos: torch.Tensor, k: torch.Tensor,
+                    v: Optional[torch.Tensor], bt: int) -> None:
     """Write one token's K/V into the paged pool, in place.
 
     pool_l: (n_blocks, bt, 2, KV, hd) [global layout] or
     (B, mbs, bt, 2, KV, hd) [per_seq layout]; pos: (B,) absolute
-    positions; k/v: (B, KV, hd).
+    positions; k/v: (B, KV, hd). A latent pool (n_blocks, bt, W) takes
+    the (B, W) latent rows as ``k`` and ``v`` None.
     """
     B = pos.shape[0]
     pos = pos.long()
     blk = torch.gather(block_table, 1, (pos // bt)[:, None])[:, 0].long()
     slot = pos % bt
-    kv = torch.stack([k, v], dim=1).to(pool_l.dtype)        # (B, 2, KV, hd)
+    kv = (k if v is None else torch.stack([k, v], dim=1)).to(pool_l.dtype)
     if pool_l.dim() == 6:                    # per_seq layout
         pool_l[torch.arange(B, device=pos.device), blk, slot] = kv
     else:
@@ -504,7 +544,9 @@ def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
     records the call as one ``decode_step`` span: the host's dispatch of
     the step, which returns before the card has run it. Its tag says how
     the step ran: ``DECODE_EAGER``, ``DECODE_REPLAY`` or
-    ``DECODE_CAPTURE`` (``repro_torch.obs.tracer``).
+    ``DECODE_CAPTURE`` (``repro_torch.obs.tracer``). An eager step also
+    gives it, inside that span, one ``mla_attn`` span per latent
+    attention layer and one ``moe_ffn`` span per MoE FFN.
 
     On the card, a step that :func:`graph_eligible` admits runs as one
     CUDA graph: the first call on a (model, cache) key runs eagerly, the
@@ -536,7 +578,7 @@ def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
         logits, kv_len, how = _graph_step(model, cfg, tokens, cache)
     else:
         logits, kv_len = decode_body(model, cfg, tokens, cache, mrope_pos,
-                                     input_embeds)
+                                     input_embeds, tracer)
         how = DECODE_EAGER
     new_cache = dict(cache)
     new_cache["kv_len"] = kv_len
@@ -547,11 +589,22 @@ def decode_step(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
 
 def decode_body(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
                 cache: Cache, mrope_pos: Optional[torch.Tensor] = None,
-                input_embeds: Optional[torch.Tensor] = None
+                input_embeds: Optional[torch.Tensor] = None, tracer=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decode step itself, run eagerly or under capture: (logits,
     ``kv_len + 1``), the cache's pool and states written in place. Call it
-    without autograd (:func:`decode_step` does)."""
+    without autograd (:func:`decode_step` does). ``tracer`` (eager only)
+    gets each latent attention layer's ``mla_attn`` and each MoE FFN's
+    ``moe_ffn`` span.
+
+    MLA runs in its absorbed form: the step writes the token's ``[c,
+    k_pe]`` (the normed latent, the rotated rope key) into the latent
+    pool; per head ``q_lat = q_nope W_UK^T`` (R wide), where ``W_UK`` and
+    ``W_UV`` are the head's ``k_nope`` and ``v`` columns of ``wkv_b``;
+    the paged MLA kernel scores each position ``(q_lat . c + q_pe .
+    k_pe) * scale`` and returns ``o_lat = sum p c``; then ``o_lat W_UV``
+    and ``wo``. The same attention as :func:`forward`'s published form,
+    with the products in another order."""
     cdt = DTYPES[cfg.compute_dtype]
     B = tokens.shape[0]
     hd = cfg.head_dim_
@@ -568,8 +621,13 @@ def decode_body(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
         p3 = (mrope_pos if mrope_pos is not None
               else pos[None, :, None].repeat(3, 1, 1))       # (3, B, 1)
         cos, sin = mrope_cos_sin(p3, hd, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.mla is not None:
+        cos, sin = rope_cos_sin(cfg, pos[:, None])           # (B,1,half)
     elif cfg.n_heads:
         cos, sin = rope_angles(pos[:, None], hd, cfg.rope_theta)  # (B,1,half)
+
+    if "latent_pool" in cache:
+        table = cache["block_table"].contiguous()
 
     if "kv_pool" in cache:
         table = cache["block_table"]
@@ -603,10 +661,40 @@ def decode_body(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
                                        attn_table, kv_len)
         return o.reshape(B, cfg.n_heads * hd) @ p["wo"]
 
+    def mla_decode(h: torch.Tensor, p: dict,
+                   pool_l: torch.Tensor) -> torch.Tensor:
+        a, H = cfg.mla, cfg.n_heads
+        nope, rope, R = a.qk_nope_head_dim, a.qk_rope_head_dim, a.kv_lora_rank
+        q_nope, q_pe = (h @ p["wq"]).reshape(B, H, nope + rope).split(
+            [nope, rope], -1)
+        c, k_pe = (h @ p["wkv_a"]).split([R, rope], -1)
+        c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+        q_pe = apply_rope(deinterleave(q_pe)[:, None], cos, sin)[:, 0]
+        k_pe = apply_rope(deinterleave(k_pe)[:, None, None], cos, sin)[:, 0, 0]
+        _paged_kv_write(pool_l, table, pos, torch.cat([c, k_pe], -1), None,
+                        cfg.kv_block_tokens)
+        w_b = p["wkv_b"].view(R, H, nope + a.v_head_dim)
+        # (H, B, nope) x (H, nope, R): per head q_nope W_UK^T
+        q_lat = torch.bmm(q_nope.transpose(0, 1), w_b[:, :, :nope].permute(1, 2, 0))
+        q = torch.cat([q_lat.transpose(0, 1), q_pe], -1)
+        o_lat = ops.paged_mla_decode(q, pool_l, table, kv_len, R,
+                                     cfg.softmax_scale())   # (B, H, R)
+        # (H, B, R) x (H, R, v): per head o_lat W_UV
+        o = torch.bmm(o_lat.transpose(0, 1), w_b[:, :, nope:].transpose(0, 1))
+        return o.transpose(0, 1).reshape(B, H * a.v_head_dim) @ p["wo"]
+
     def ffn(h: torch.Tensor, p: dict, moe: bool) -> torch.Tensor:
         if moe:
             return moe_ffn(h[:, None, :], p, cfg)[0][:, 0]
         return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+    def spanned(stage: int, fn, *args) -> torch.Tensor:
+        if tracer is None:
+            return fn(*args)
+        t0 = tracer.begin(stage)
+        out = fn(*args)
+        tracer.end(stage, t0)
+        return out
 
     def mamba_decode(h: torch.Tensor, p: dict, l: int) -> torch.Tensor:
         conv, ssm = cache["conv_state"][l], cache["ssm_state"][l]
@@ -637,13 +725,20 @@ def decode_body(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
                 moe = j % 2 == 1
                 x = x + ffn(h, gp["moe" if moe else "mlp"][str(j // 2)], moe)
     else:
-        for layer, pool_l in zip(model.decoder_layers(), cache["kv_pool"]):
+        mla = cfg.mla is not None
+        pools = cache["latent_pool" if mla else "kv_pool"]
+        for layer, pool_l in zip(model.decoder_layers(), pools):
             lp = _cast(layer, cdt)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            x = x + attn_decode(h, lp["attn"], pool_l)
+            if mla:
+                x = x + spanned(ST_MLA_ATTN, mla_decode, h, lp["attn"], pool_l)
+            else:
+                x = x + attn_decode(h, lp["attn"], pool_l)
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            moe = "moe" in lp
-            x = x + ffn(h, lp["moe" if moe else "mlp"], moe)
+            if "moe" in lp:
+                x = x + spanned(ST_MOE_FFN, ffn, h, lp["moe"], True)
+            else:
+                x = x + ffn(h, lp["mlp"], False)
     x = rms_norm(x, model.final_norm.to(x.dtype), cfg.norm_eps)
     return logits_from_hidden(model, cfg, x), kv_len
 
@@ -653,14 +748,19 @@ def graph_eligible(cfg: ArchConfig, device: torch.device, cache: Cache,
                    mrope_pos: Optional[torch.Tensor] = None,
                    input_embeds: Optional[torch.Tensor] = None) -> bool:
     """Whether a decode step on ``device`` runs as a CUDA graph: on the
-    card, every layer attention through the paged pool and a dense FFN (no
-    MoE layer, whose token dispatch is not captured, and no mamba state),
-    and neither ``input_embeds`` nor ``mrope_pos`` passed. Nothing in such
-    a step reads a value back to the host, and its shapes are the
-    cache's."""
-    return (device.type == "cuda" and mrope_pos is None
-            and input_embeds is None and cfg.moe is None
-            and cfg.mamba is None and "kv_pool" in cache)
+    card, every layer attention through a paged pool, no mamba state, and
+    neither ``input_embeds`` nor ``mrope_pos`` passed. Nothing in such a
+    step reads a value back to the host, and its shapes are the cache's.
+    A MoE FFN's token dispatch is captured beside latent attention (the
+    latent pool: DeepSeek-V2), whose captured step is held to its eager
+    step on the card; beside a K/V pool a MoE model stays eager until its
+    own is."""
+    if (device.type != "cuda" or mrope_pos is not None
+            or input_embeds is not None or cfg.mamba is not None):
+        return False
+    if "latent_pool" in cache:
+        return True
+    return cfg.moe is None and "kv_pool" in cache
 
 
 class _DecodeGraph:
@@ -697,10 +797,11 @@ def _graph_key(model: Model, cfg: ArchConfig, tokens: torch.Tensor,
                cache: Cache) -> tuple:
     """What a captured step holds fixed: the config, the batch's shapes
     and dtypes, and the address of every tensor the graph reads or writes
-    in place -- each parameter, the pool and the block table (with their
-    shapes, strides and dtypes). A replaced parameter or a new cache
-    changes it; new values at the same addresses do not."""
-    pool, table, kv_len = cache["kv_pool"], cache["block_table"], cache["kv_len"]
+    in place -- each parameter, the pool (K/V or latent) and the block
+    table (with their shapes, strides and dtypes). A replaced parameter or
+    a new cache changes it; new values at the same addresses do not."""
+    pool = cache["latent_pool"] if "latent_pool" in cache else cache["kv_pool"]
+    table, kv_len = cache["block_table"], cache["kv_len"]
     return (cfg, tokens.device, tokens.shape, tokens.dtype, kv_len.shape,
             kv_len.dtype, _data_ptr(pool), pool.shape, pool.stride(),
             pool.dtype, _data_ptr(table), table.shape, table.stride(),

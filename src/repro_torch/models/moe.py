@@ -22,6 +22,10 @@ where torch's defaults differ from JAX's are pinned down:
   so the drop order (who keeps a slot when an expert overflows) is the
   reference's: earlier tokens first, each token's choices in rank order.
 
+One option the reference lacks: a :class:`~.config.PortMoEConfig` with
+``norm_topk_prob`` False keeps the top-k probabilities as the gates
+(DeepSeek-V2), where the reference always renormalises them.
+
 Parameters come as a mapping (``router``, ``w_gate``/``w_up`` (E, D, F),
 ``w_down`` (E, F, D), optional ``shared_{gate,up,down}``), already in
 the compute dtype.
@@ -38,14 +42,19 @@ from .config import ArchConfig, MoEConfig
 Params = Mapping[str, torch.Tensor]
 
 
-def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int,
+                norm_topk_prob: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (T, D) -> (gates (T,k), expert_idx (T,k), aux_loss scalar)."""
+    """x: (T, D) -> (gates (T,k), expert_idx (T,k), aux_loss scalar).
+    The gates are the top-k softmax probabilities, renormalised to sum
+    to 1 unless ``norm_topk_prob`` is False (the reference always
+    renormalises)."""
     logits = x.float() @ w_router.float()
     probs = torch.softmax(logits, dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = srt.values[:, :top_k], srt.indices[:, :top_k]
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    if norm_topk_prob:
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
     E = w_router.shape[-1]
     me = probs.mean(dim=0)                             # mean router prob
@@ -79,7 +88,9 @@ def _dispatch_tokens(xt: torch.Tensor, p: Params, cfg: ArchConfig
     C = capacity(T, m)
     dev = xt.device
 
-    gates, idx, aux = router_topk(xt, p["router"], k)
+    # a reference MoEConfig (the parity tests hand one in) has no such field
+    norm = getattr(m, "norm_topk_prob", True)
+    gates, idx, aux = router_topk(xt, p["router"], k, norm)
 
     # ---- sort assignments by expert ------------------------------------
     flat_e = idx.reshape(-1)                          # (T*k,)

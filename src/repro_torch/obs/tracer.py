@@ -94,6 +94,10 @@ STAGES: Tuple[Tuple[str, Optional[str]], ...] = (
     ("sched_task", None),
     # one models.model.decode_step call: the host's dispatch of the step
     ("decode_step", None),
+    # inside an eager decode step: one latent attention layer (absorbed
+    # MLA over the latent pool) and one MoE FFN (moe_ffn's dispatch)
+    ("mla_attn", "decode_step"),
+    ("moe_ffn", "decode_step"),
     # fleet control plane
     ("fleet_tick", None),
     ("fleet_recovery", "fleet_tick"),      # dead-node re-placement
@@ -139,6 +143,8 @@ ST_LRU_SCAN = _IDX["lru_scan"]
 ST_RECLAIM_ROUND = _IDX["reclaim_round"]
 ST_SCHED_TASK = _IDX["sched_task"]
 ST_DECODE_STEP = _IDX["decode_step"]
+ST_MLA_ATTN = _IDX["mla_attn"]
+ST_MOE_FFN = _IDX["moe_ffn"]
 ST_FLEET_TICK = _IDX["fleet_tick"]
 ST_FLEET_RECOVERY = _IDX["fleet_recovery"]
 ST_FLEET_STEP = _IDX["fleet_step"]
@@ -162,7 +168,7 @@ MIRRORED = frozenset((
     "guest_access", "guest_copy", "fault_total", "fault_readahead",
     "swap_out", "swap_in", "backend_store", "backend_load", "swap_compress",
     "swap_decompress", "lru_scan", "reclaim_round", "sched_task",
-    "decode_step"))
+    "decode_step", "mla_attn", "moe_ffn"))
 _MIRROR = tuple(name in MIRRORED for name in STAGE_NAMES)
 _RANGE_NAMES = tuple(f"taiji::{name}" for name in STAGE_NAMES)
 
